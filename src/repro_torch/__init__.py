@@ -1,0 +1,23 @@
+"""PyTorch/CUDA port of the H2OPUS-TLR reproduction (``repro``).
+
+Compress a dense SPD operator into tile low rank form, factor it with the
+left-looking ARA Cholesky or LDL^T, then solve, take log-determinants and
+draw samples -- on an NVIDIA Hopper card, with the Pallas TPU kernels of
+the JAX package replaced by hand-written CUDA kernels (``kernels/csrc``).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
+where every kernel runs its plain PyTorch version. The package imports
+``torch`` and numpy, never ``jax`` and nothing of ``repro``.
+"""
+
+from .device import pin_precision, resolve_device
+
+pin_precision()
+
+from .core import (CholOptions, TLRFactorization, TLRMatrix,  # noqa: E402
+                   TLROperator, covariance_problem, tlr_cholesky, tlr_ldlt)
+
+__all__ = [
+    "CholOptions", "TLRFactorization", "TLRMatrix", "TLROperator",
+    "covariance_problem", "resolve_device", "tlr_cholesky", "tlr_ldlt",
+]

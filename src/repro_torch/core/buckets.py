@@ -1,0 +1,58 @@
+"""Bucket-ladder helpers (counterpart of ``repro/core/buckets.py:18-61``).
+
+Host-driven loops whose batch size changes every step (factorization
+columns, triangular-solve columns) pad each batch up to a small ladder of
+power-of-two sizes, so only ~log2(nb) distinct operand shapes occur. The
+JAX package needs that to bound its compiled variants; the port keeps the
+same shapes so both packages run the same padded batches, and so a later
+CUDA-graph capture has a bounded set of shapes to capture.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _bucket_ladder(cap: int) -> list[int]:
+    """Powers of two capped at ``cap``: [1, 2, 4, ..., cap]."""
+    if cap <= 0:
+        return []
+    vals = []
+    v = 1
+    while v < cap:
+        vals.append(v)
+        v *= 2
+    vals.append(cap)
+    return vals
+
+
+def _bucket_up(x: int, ladder: list[int]) -> int:
+    """Smallest ladder value >= x."""
+    for v in ladder:
+        if v >= x:
+            return v
+    return ladder[-1]
+
+
+def _column_buckets(nb: int, k: int, ladder: list[int]) -> tuple[int, int]:
+    """Coupled (T, J) bucket pair for factorization column ``k``.
+
+    T = nb-1-k and J = k always sum to nb-1, so bucketing T up the ladder
+    determines an interval [Tmin, Tb] of columns sharing one shape; padding
+    J up to nb-1-Tmin covers every column in the interval.
+    """
+    T = nb - 1 - k
+    Tb = _bucket_up(T, ladder)
+    i = ladder.index(Tb)
+    Tmin = (ladder[i - 1] + 1) if i > 0 else 1
+    Jb = max(1, nb - 1 - Tmin)
+    return Tb, Jb
+
+
+def _pad_axis(x: torch.Tensor, size: int, axis: int = 0) -> torch.Tensor:
+    """Zero-pad ``axis`` of ``x`` up to ``size`` (no copy when it fits)."""
+    if x.shape[axis] == size:
+        return x
+    shape = list(x.shape)
+    shape[axis] = size - x.shape[axis]
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)

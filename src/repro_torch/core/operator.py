@@ -1,0 +1,298 @@
+"""Operator-first public API: ``TLROperator`` and ``TLRFactorization``.
+
+Port of ``repro/core/operator.py:53-392,402-477``: compress -> factor ->
+solve/logdet/sample (section 6).
+
+* ``TLROperator`` wraps a ``TLRMatrix``: ``compress`` / ``from_dense`` /
+  ``from_kernel`` (one batched SVD or batched ARA over all nt tiles),
+  ``matvec`` / ``@``, ``to_dense``, ``memory_stats``, and ``cholesky`` /
+  ``ldlt`` returning a factorization handle.
+* ``TLRFactorization`` is the result handle of the left-looking
+  factorizations: ``solve``, ``tri_matvec``, ``tri_solve``, ``logdet`` and
+  ``sample``.
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Union
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from . import solve as _solve
+from .ara import ARAParams, ara_compress_dense, torch_probes
+from .tlr import TLRMatrix, tril_pairs
+
+
+# -- batched tile compression (construction hot path) --------------------------
+
+
+def _split_tiles(A: torch.Tensor, nb: int, b: int):
+    """Diagonal tiles (nb, b, b) and packed lower tiles (nt, b, b)."""
+    Ab = A.reshape(nb, b, nb, b)
+    diag = torch.arange(nb, device=A.device)
+    D = Ab[diag, :, diag, :]
+    pairs = torch.as_tensor(tril_pairs(nb), device=A.device)
+    tiles = Ab[pairs[:, 0], :, pairs[:, 1], :]
+    return D, tiles
+
+
+def _svd_compress_tiles(tiles: torch.Tensor, eps: float, *, r_max: int,
+                        rel: bool):
+    """Batched truncated SVD of (nt, b, b) tiles: keep singular values
+    > eps (absolute) or > eps * s_max (relative), 0 <= rank <= r_max,
+    columns past the rank zeroed. A numerically zero tile has rank 0."""
+    nt, b = tiles.shape[0], tiles.shape[1]
+    k = min(r_max, b)
+    Ub, s, Vh = torch.linalg.svd(tiles, full_matrices=False)
+    cut = eps * (s[:, :1] if rel else torch.ones_like(s[:, :1]))
+    ranks = (s > cut).sum(dim=1).clamp(0, r_max).to(torch.int32)
+    mask = (torch.arange(k, device=tiles.device)[None, :]
+            < ranks[:, None]).to(tiles.dtype)
+    U = tiles.new_zeros((nt, b, r_max))
+    V = tiles.new_zeros((nt, b, r_max))
+    U[:, :, :k] = Ub[:, :, :k] * (s[:, None, :k] * mask[:, None, :])
+    V[:, :, :k] = Vh.transpose(1, 2)[:, :, :k] * mask[:, None, :]
+    return U, V, ranks
+
+
+# -- the operator handle -------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TLROperator:
+    """Symmetric TLR operator handle wrapping a ``TLRMatrix``."""
+
+    A: TLRMatrix
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.A.n, self.A.n)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.A.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.A.device
+
+    @property
+    def nb(self) -> int:
+        return self.A.nb
+
+    @property
+    def b(self) -> int:
+        return self.A.b
+
+    @property
+    def n(self) -> int:
+        return self.A.n
+
+    @property
+    def r_max(self) -> int:
+        return self.A.r_max
+
+    @property
+    def ranks(self) -> torch.Tensor:
+        return self.A.ranks
+
+    # -- construction -----------------------------------------------------
+
+    @classmethod
+    def compress(
+        cls,
+        dense: Union[torch.Tensor, np.ndarray],
+        tile: int,
+        r_max: Optional[int] = None,
+        eps: float = 1e-6,
+        *,
+        rel: bool = False,
+        method: str = "svd",
+        bs: int = 16,
+        seed: int = 0,
+        probes: Optional[Callable] = None,
+        device=None,
+    ) -> "TLROperator":
+        """Compress a dense symmetric matrix into TLR form, batched: one
+        batched truncated SVD (``method="svd"``) or the batched ARA of
+        Algorithm 1 (``method="ara"``) over all nt off-diagonal tiles.
+
+        A tensor stays on its device unless ``device`` says otherwise; a
+        numpy array goes to ``device`` (the card by default). ``probes``
+        (``probes(k, it, shape, dtype, device)``, called with k = 0) feeds
+        the ARA probes; by default they come from :func:`torch_probes` of
+        ``seed``.
+        """
+        if isinstance(dense, torch.Tensor) and device is None:
+            A = dense
+        else:
+            A = torch.as_tensor(dense, device=resolve_device(device))
+        n = A.shape[0]
+        if n % tile:
+            raise ValueError(f"n={n} must be a multiple of tile size b={tile}")
+        nb = n // tile
+        r_max = r_max or tile
+        D, tiles = _split_tiles(A, nb, tile)
+        if tiles.shape[0] == 0:
+            U = A.new_zeros((0, tile, r_max))
+            V = A.new_zeros((0, tile, r_max))
+            ranks = torch.zeros((0,), dtype=torch.int32, device=A.device)
+        elif method == "svd":
+            U, V, ranks = _svd_compress_tiles(tiles, eps, r_max=r_max,
+                                              rel=rel)
+        elif method == "ara":
+            if rel:
+                raise ValueError("rel thresholds are SVD-only; ARA uses the "
+                                 "absolute 2-norm residual estimate")
+            p = ARAParams(bs=min(bs, r_max), r_max=r_max, eps=eps)
+            src = probes or torch_probes(seed)
+            U, B, ranks, _ = ara_compress_dense(
+                tiles, lambda it, shape, dt, dev: src(0, it, shape, dt, dev),
+                p)
+            V = B  # tile ~= Q B^T  =>  U=Q, V=B
+        else:
+            raise ValueError(f"method must be 'svd' or 'ara', got {method!r}")
+        return cls(TLRMatrix(D=D, U=U, V=V, ranks=ranks))
+
+    @classmethod
+    def from_dense(cls, dense, tile: int, r_max: Optional[int] = None,
+                   eps: float = 1e-6, **kw) -> "TLROperator":
+        """Alias of :meth:`compress` (scipy-style constructor name)."""
+        return cls.compress(dense, tile, r_max, eps, **kw)
+
+    @classmethod
+    def from_kernel(
+        cls,
+        points: np.ndarray,
+        kernel: str = "exp",
+        *,
+        tile: int,
+        eps: float = 1e-8,
+        ell: Optional[float] = None,
+        nugget: float = 1e-8,
+        r_max: Optional[int] = None,
+        device=None,
+        dtype=torch.float64,
+        **kw,
+    ) -> "TLROperator":
+        """Covariance operator of a point cloud (already in tile order),
+        with the kernel evaluated on ``device`` (the card by default)."""
+        from .generators import covariance_matrix
+
+        K = covariance_matrix(points, kernel, ell, nugget, device=device,
+                              dtype=dtype)
+        return cls.compress(K, tile, r_max, eps, **kw)
+
+    # -- algebra ----------------------------------------------------------
+
+    def matvec(self, x: torch.Tensor, *,
+               batching: str | None = "flat") -> torch.Tensor:
+        """y = A @ x; x is (n,) or batched (n, m)."""
+        return _solve.tlr_matvec(self.A, x, batching=batching)
+
+    def __matmul__(self, x):
+        if isinstance(x, torch.Tensor):
+            return self.matvec(x)
+        return NotImplemented
+
+    def to_dense(self) -> torch.Tensor:
+        return self.A.to_dense()
+
+    def memory_stats(self) -> dict:
+        return self.A.memory_stats()
+
+    # -- factorization ----------------------------------------------------
+
+    def cholesky(self, opts=None) -> "TLRFactorization":
+        """Left-looking TLR Cholesky (Algorithm 6); returns the handle."""
+        from .cholesky import CholOptions, tlr_cholesky
+
+        return tlr_cholesky(self.A, opts or CholOptions())
+
+    def ldlt(self, opts=None) -> "TLRFactorization":
+        """Left-looking TLR LDL^T (Algorithm 10); returns the handle."""
+        from .cholesky import CholOptions, tlr_ldlt
+
+        return tlr_ldlt(self.A, opts or CholOptions())
+
+
+# -- the factorization handle --------------------------------------------------
+
+
+@dataclasses.dataclass
+class TLRFactorization:
+    """Handle for a TLR factorization  P A P^T = L L^T  (or L D L^T).
+
+    ``L.D`` holds the dense diagonal blocks L(k,k) (unit-lower for LDL^T),
+    ``d`` the LDL diagonal (None for Cholesky), ``perm`` the tile
+    permutation (logical -> original; the identity until pivoting is
+    ported), ``stats`` the driver's per-column record.
+    """
+
+    L: TLRMatrix
+    d: Optional[torch.Tensor]
+    perm: np.ndarray
+    stats: dict
+
+    @property
+    def nb(self) -> int:
+        return self.L.nb
+
+    @property
+    def b(self) -> int:
+        return self.L.b
+
+    @property
+    def n(self) -> int:
+        return self.L.n
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.L.n, self.L.n)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.L.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.L.device
+
+    @property
+    def is_ldlt(self) -> bool:
+        return self.d is not None
+
+    def solve(self, y: torch.Tensor) -> torch.Tensor:
+        """x = A^{-1} y through the factorization; y is (n,) or (n, m)."""
+        return _solve._factor_solve_impl(self, y)
+
+    def matvec(self, y: torch.Tensor) -> torch.Tensor:
+        """Preconditioner action ``A^{-1} y`` (aliases :meth:`solve`)."""
+        return self.solve(y)
+
+    def tri_matvec(self, x: torch.Tensor, *, trans: bool = False,
+                   batching: str | None = "flat") -> torch.Tensor:
+        """y = L @ x (or L^T @ x)."""
+        return _solve.tlr_tri_matvec(self.L, x, trans=trans,
+                                     batching=batching)
+
+    def tri_solve(self, y: torch.Tensor, *, trans: bool = False,
+                  batching: str | None = "flat") -> torch.Tensor:
+        """x = L^{-1} y (or L^{-T} y) via the bucketed blocked TRSM."""
+        return _solve.tlr_trsv(self.L, y, trans=trans, batching=batching)
+
+    def logdet(self) -> torch.Tensor:
+        """log |det A| from the factorization diagonals."""
+        return _solve._logdet_impl(self)
+
+    def sample(self, num: int = 1, *, generator=None,
+               z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x ~ N(0, A) via x = P^T L z (Cholesky factorizations only);
+        ``z`` (n, num) may be passed in, else it is drawn from
+        ``generator``."""
+        return _solve._mvn_sample_impl(self, num, generator=generator, z=z)
