@@ -1,19 +1,19 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each kernel against its plain PyTorch version on the card in f64, f32 and
-bf16 at the main path's shapes, checks a small end-to-end run on the card
-against the same run on the CPU, then drives the main path at full width:
-a 2-D exponential covariance (N = 32768, tile 512) built on the card,
-``TLROperator.compress`` (batched SVD) -> ``cholesky`` (left-looking
-dynamic ARA) ->
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then
+drives the main path at full width: a 2-D exponential covariance
+(N = 32768, tile 512) built on the card, ``TLROperator.compress`` (batched
+SVD, no rank may reach r_max) -> ``cholesky`` (left-looking dynamic ARA) ->
 solve / logdet / sample / matvec, gated on the randomized factor residual
-``||K z - L (L^T z)|| / ||K z|| <= 100 eps``.
+``||K z - L (L^T z)|| / ||K z|| <= 100 eps``, and times the batched SVD of
+one tile column by each cuSOLVER driver. Then it holds each kernel against
+its plain PyTorch version on the card in f64, f32 and bf16 at the main
+path's shapes (and checks that the gate rejects a planted fault), and
+checks a small end-to-end run on the card against the same run on the CPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``--n`` cuts the main path's size for a quick look;
-``--compress ara`` compresses with batched ARA instead of the batched SVD;
 ``--profile DIR`` adds a torch.profiler table of the factorization.)
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -40,8 +40,9 @@ PEAK_BYTES = 3.35e12
 # The main path's configuration: tile 512, compression at eps 1e-8 with
 # ranks up to R_MAX, factorization at EPS.
 TILE, R_MAX, EPS = 512, 128, 1e-6
-TOL = {"float64": (1e-12, 1e-12), "float32": (1e-5, 1e-5),
-       "bfloat16": (5e-2, 5e-2)}
+# Kernel against plain version: max abs error <= TOL * max |plain output|
+# (the tolerances of tests/test_kernels.py, relative to the output's scale).
+TOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 5e-2}
 REPLACES = {
     "batched_gemm": "src/repro/kernels/batched_gemm.py:41",
     "tile_chain": "src/repro/kernels/tlr_matvec.py:35",
@@ -115,35 +116,41 @@ def build_kernels() -> None:
 # -- phase 3: kernels against their plain versions ------------------------------------
 
 
-def kernel_cases(torch):
-    """(name, main-path shape label, make(dtype) -> (kernel, plain, library,
-    bytes_needed, flops_needed, scale)) at the main path's shapes: N=32768,
-    tile 512, r_max 128, bs 16 (T = 63 row tiles, Jb = 30 / 46 buckets)."""
-    g = torch.Generator(device="cuda").manual_seed(0)
+def kernel_cases(torch, ranks_a, device="cuda"):
+    """(name, shape label, headline, make(dtype) -> (kernel, plain, fault,
+    library, bytes_needed, flops_needed)) at the main path's shapes:
+    N=32768, tile 512, r_max 128, bs 16 (T = 63 row tiles, Jb = 30 / 46
+    buckets). ``ranks_a`` are the A-tile ranks the main path's first column
+    gives ``batched_gemm``. Inputs are scaled so that outputs are O(1).
+    ``fault`` is the plain version with one rank (``batched_gemm``,
+    ``tile_chain``) or the last j term (``lr_sample``) dropped: a result the
+    gate must reject. ``headline`` marks the shape that takes most of the
+    kernel's main-path time; its numbers go into the kernels line."""
+    g = torch.Generator(device=device).manual_seed(0)
     from repro_torch.kernels import batched_gemm as bg
     from repro_torch.kernels import lr_sample as lr
     from repro_torch.kernels import tlr_matvec as tc
 
     def randn(shape, dtype, scale=1.0):
-        x = torch.randn(shape, generator=g, device="cuda",
+        x = torch.randn(shape, generator=g, device=device,
                         dtype=torch.float32) * scale
         return x.to(dtype)
 
-    def bgemm(T, m, k, n):
+    def bgemm(m, k, n, ranks):
         def make(dtype):
+            T = ranks.shape[0]
             A = randn((T, m, k), dtype)
             B = randn((T, k, n), dtype, 1 / math.sqrt(k))
-            ranks = torch.randint(0, k + 1, (T,), generator=g, device="cuda",
-                                  dtype=torch.int32)
             rs = int(ranks.sum())
             isz = A.element_size()
-            mask = (torch.arange(k, device="cuda")[None, :]
+            mask = (torch.arange(k, device=device)[None, :]
                     < ranks[:, None]).to(dtype)
             return (lambda: bg.batched_gemm_cuda(A, B, ranks),
                     lambda: bg.batched_gemm_plain(A, B, ranks),
+                    lambda: bg.batched_gemm_plain(A, B, (ranks - 1).clamp(0)),
                     lambda: torch.einsum("tmk,tk,tkn->tmn", A, mask, B),
                     (m * rs + n * rs + T * m * n) * isz + 4 * T,
-                    2.0 * m * n * rs, math.sqrt(k))
+                    2.0 * m * n * rs)
         return make
 
     def chain(T, b, r, s):
@@ -154,9 +161,10 @@ def kernel_cases(torch):
             isz = U.element_size()
             return (lambda: tc.tile_chain_cuda(U, V, X),
                     lambda: tc.tile_chain_plain(U, V, X),
+                    lambda: tc.tile_chain_plain(U, V, X, width=r - 1),
                     lambda: torch.einsum("tbr,tcr,tcs->tbs", U, V, X),
                     (2 * T * b * r + 2 * T * b * s) * isz,
-                    4.0 * T * b * r * s, math.sqrt(b))
+                    4.0 * T * b * r * s)
         return make
 
     def lrs(T, k, b, r, s):
@@ -167,54 +175,62 @@ def kernel_cases(torch):
             isz = Ui.element_size()
             return (lambda: lr.lr_sample_cuda(Ui, Vi, W2),
                     lambda: lr.lr_sample_plain(Ui, Vi, W2),
+                    lambda: lr.lr_sample_plain(Ui[:, :-1].contiguous(),
+                                               Vi[:, :-1].contiguous(),
+                                               W2[:-1].contiguous()),
                     lambda: torch.einsum("tjbr,tjcr,jcs->tbs", Ui, Vi, W2),
                     (2 * T * k * b * r + k * b * s + T * b * s) * isz,
-                    4.0 * T * k * b * r * s, k * math.sqrt(b))
+                    4.0 * T * k * b * r * s)
         return make
 
+    T = ranks_a.shape[0]
+    ragged = torch.randint(1, 25, (5,), generator=g, device=device,
+                           dtype=torch.int32)
     return [
-        ("batched_gemm", "sample T=63 m=512 k=128 n=16", bgemm(63, 512, 128, 16)),
-        ("batched_gemm", "sample_t T=63 m=512 k=128 n=128",
-         bgemm(63, 512, 128, 128)),
-        ("batched_gemm", "ragged T=5 m=96 k=24 n=20", bgemm(5, 96, 24, 20)),
-        ("tile_chain", "W2 hoist T=30 b=512 r=128 s=16", chain(30, 512, 128, 16)),
-        ("tile_chain", "sample_t T*J=1890 b=512 r=128 s=128",
+        ("batched_gemm", f"sample T={T} m=512 k=128 n=16", True,
+         bgemm(512, 128, 16, ranks_a)),
+        ("batched_gemm", f"sample_t T={T} m=512 k=128 n=128", False,
+         bgemm(512, 128, 128, ranks_a)),
+        ("batched_gemm", "ragged T=5 m=96 k=24 n=20", False,
+         bgemm(96, 24, 20, ragged)),
+        ("tile_chain", "W2 hoist T=30 b=512 r=128 s=16", False,
+         chain(30, 512, 128, 16)),
+        ("tile_chain", "sample_t T*J=1890 b=512 r=128 s=128", True,
          chain(1890, 512, 128, 128)),
-        ("tile_chain", "ragged T=3 b=96 r=24 s=70", chain(3, 96, 24, 70)),
-        ("lr_sample", "T=63 J=30 b=512 r=128 s=16", lrs(63, 30, 512, 128, 16)),
-        ("lr_sample", "T=32 J=46 b=512 r=128 s=16", lrs(32, 46, 512, 128, 16)),
-        ("lr_sample", "ragged T=5 J=2 b=96 r=24 s=20", lrs(5, 2, 96, 24, 20)),
+        ("tile_chain", "ragged T=3 b=96 r=24 s=70", False,
+         chain(3, 96, 24, 70)),
+        ("lr_sample", "T=63 J=30 b=512 r=128 s=16", True,
+         lrs(63, 30, 512, 128, 16)),
+        ("lr_sample", "T=32 J=46 b=512 r=128 s=16", False,
+         lrs(32, 46, 512, 128, 16)),
+        ("lr_sample", "ragged T=5 J=2 b=96 r=24 s=20", False,
+         lrs(5, 2, 96, 24, 20)),
     ]
 
 
-# The shape whose f64 numbers go into the kernels line (the one that takes
-# most of the kernel's time on the main path).
-HEADLINE = {
-    "batched_gemm": "sample T=63 m=512 k=128 n=16",
-    "tile_chain": "sample_t T*J=1890 b=512 r=128 s=128",
-    "lr_sample": "T=63 J=30 b=512 r=128 s=16",
-}
+def gate(got, want, tol: float) -> tuple[float, float]:
+    """(max abs error, allowed): ``got`` passes when its largest deviation
+    from ``want`` is at most ``tol`` times the largest |want|."""
+    want = want.double()
+    err = float((got.double() - want).abs().max())
+    return err, tol * float(want.abs().max())
 
 
-def check_kernels() -> dict:
+def check_kernels(ranks_a) -> dict:
     import torch
     results = {}
-    for name, label, make in kernel_cases(torch):
+    for name, label, headline, make in kernel_cases(torch, ranks_a):
         for dtype in (torch.float64, torch.float32, torch.bfloat16):
             dn = str(dtype).removeprefix("torch.")
-            kernel, plain, library, nbytes, flops, scale = make(dtype)
-            got = kernel()
+            kernel, plain, fault, library, nbytes, flops = make(dtype)
             want = plain()
-            torch.cuda.synchronize()
-            rtol, atol = TOL[dn]
-            diff = (got.double() - want.double()).abs()
-            err = float(diff.max())
-            bound = atol * scale + rtol * want.double().abs()
-            ok = bool((diff <= bound).all())
+            err, atol = gate(kernel(), want, TOL[dn])
+            fault_err, _ = gate(fault(), want, TOL[dn])
+            ok = err <= atol
             rec = {"kernel": name, "shape": label, "dtype": dn,
-                   "max_abs_err": err, "rtol": rtol, "atol": atol * scale,
-                   "ok": ok}
-            if dtype == torch.float64 or label == HEADLINE[name]:
+                   "max_abs_err": err, "atol": atol, "ok": ok,
+                   "planted_fault_err": fault_err}
+            if dtype == torch.float64 or headline:
                 reps = 3 if flops > 5e10 else 10
                 rec["ms"] = event_ms(kernel, reps)
                 rec["plain_ms"] = event_ms(plain, reps)
@@ -227,9 +243,13 @@ def check_kernels() -> dict:
             if not ok:
                 raise AssertionError(f"{name} {label} {dn}: kernel disagrees "
                                      f"with its plain version "
-                                     f"(max abs err {err:.3e})")
-            results[(name, label, dn)] = rec
-            del got, want, kernel, plain, library
+                                     f"(max abs err {err:.3e} > {atol:.3e})")
+            if fault_err <= atol:
+                raise AssertionError(f"{name} {label} {dn}: the gate let a "
+                                     f"planted fault through (err "
+                                     f"{fault_err:.3e} <= {atol:.3e})")
+            results[(name, label, dn)] = dict(rec, headline=headline)
+            del want, kernel, plain, fault, library
         torch.cuda.empty_cache()
     return results
 
@@ -281,7 +301,31 @@ def _dev_us(event) -> float:
     return 0.0
 
 
-def main_path(n: int, compress: str, profile: str | None) -> dict:
+def svd_drivers(K, tile: int) -> None:
+    """Seconds of one batched ``torch.linalg.svd`` of the first tile
+    column's nb - 1 tiles by each cuSOLVER driver, with the ranks each
+    gives at the compression's 1e-8 against gesvd's and the worst relative
+    reconstruction error (gesvda is approximate)."""
+    import torch
+    nb = K.shape[0] // tile
+    tiles = K[tile:, :tile].reshape(nb - 1, tile, tile)
+    ref = None
+    for driver in ("gesvd", None, "gesvdj", "gesvda"):
+        (U, s, Vh), sec = sync_time(lambda: torch.linalg.svd(
+            tiles, full_matrices=False, driver=driver))
+        ranks = (s > 1e-8).sum(dim=1)
+        ref = ranks if ref is None else ref
+        rec = torch.linalg.matrix_norm((U * s[:, None, :]) @ Vh - tiles)
+        rel = float((rec / torch.linalg.matrix_norm(tiles)).max())
+        log(f"svd driver {driver or 'default'}: {nb - 1} tiles of {tile}^2 "
+            f"in {sec:.3f} s; ranks at 1e-8 differ from gesvd's in "
+            f"{int((ranks != ref).sum())} tiles (max |diff| "
+            f"{int((ranks - ref).abs().max())}); max rel reconstruction "
+            f"error {rel:.2e}")
+        del U, s, Vh
+
+
+def main_path(n: int, profile: str | None) -> dict:
     import torch
     from repro_torch import CholOptions, TLROperator, covariance_problem
     from repro_torch.kernels import ops
@@ -293,13 +337,13 @@ def main_path(n: int, compress: str, profile: str | None) -> dict:
     (pts, K), phases["covariance"] = sync_time(
         lambda: covariance_problem(n, 2, tile, device="cuda"))
     log(f"main path: 2-D exp covariance N={n} tile={tile} "
-        f"(nb={n // tile}), K on {K.device}; compress method={compress} "
+        f"(nb={n // tile}), K on {K.device}; compress method=svd "
         f"eps=1e-8 r_max={r_max}")
 
     ops.reset_launch_counts()
     op, phases["compress"] = sync_time(
         lambda: TLROperator.compress(K, tile, r_max=r_max, eps=1e-8,
-                                     method=compress, bs=16))
+                                     method="svd", bs=16))
     opts = CholOptions(eps=eps, bs=16, mode="dynamic", batching="flat")
     if profile:
         from torch.profiler import ProfilerActivity, profile as tprofile
@@ -325,8 +369,8 @@ def main_path(n: int, compress: str, profile: str | None) -> dict:
     log(f"A ranks: max {int(ra.max())} mean {float(ra.mean()):.2f}; "
         f"L ranks: max {int(rl.max())} mean {float(rl.mean()):.2f} "
         f"(r_max {r_max})")
-    if int(ra.max()) >= r_max:
-        log(f"note: A's max rank reached r_max={r_max}; raise R_MAX")
+    assert int(ra.max()) < r_max, \
+        f"A's max rank reached r_max={r_max}: compression clipped; raise R_MAX"
     mem = torch.cuda.max_memory_allocated()
     log(f"max_memory_allocated: {mem / 2**30:.2f} GiB")
     st = fact.stats
@@ -353,8 +397,15 @@ def main_path(n: int, compress: str, profile: str | None) -> dict:
         f"matvec rel err {mv_err:.3e}")
     assert resid <= 100 * eps, "factor residual above 100 eps"
     assert mv_err <= 1e-6, "TLR matvec disagrees with the dense K"
+    # The A-tile ranks batched_gemm gets in the first column (rows 1..nb-1).
+    nb = n // tile
+    rows = torch.arange(1, nb, device="cuda")
+    ranks_a = op.A.ranks[rows * (rows - 1) // 2].contiguous()
+    log(f"A ranks of the first column (batched_gemm's shape check): max "
+        f"{int(ranks_a.max())} mean {float(ranks_a.float().mean()):.2f}")
     del op, fact, X4, S, Y4, LLZ, KZ, Z
     torch.cuda.empty_cache()
+    svd_drivers(K, tile)
     Ld, t_dense = sync_time(lambda: torch.linalg.cholesky(K))
     ld_dense = float(2 * torch.log(torch.diagonal(Ld)).sum())
     log(f"logdet: TLR {float(ld):.6f}, dense cholesky {ld_dense:.6f} "
@@ -374,13 +425,12 @@ def main_path(n: int, compress: str, profile: str | None) -> dict:
         for e in sorted(evs, key=lambda e: -_dev_us(e))[:12]:
             log(f"  {_dev_us(e) / 1e3:10.1f} ms "
                 f"{e.count:7d}x  {e.key[:90]}")
-    return {"launches": launches, "phases": phases}
+    return {"launches": launches, "phases": phases, "ranks_a": ranks_a}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=32768)
-    ap.add_argument("--compress", choices=("svd", "ara"), default="svd")
     ap.add_argument("--profile", default=None, metavar="DIR")
     args = ap.parse_args()
 
@@ -395,13 +445,14 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = device_line()
     build_kernels()
-    results = check_kernels()
+    main = main_path(args.n, args.profile)
+    results = check_kernels(main["ranks_a"])
     small_parity()
-    main = main_path(args.n, args.compress, args.profile)
 
     kernels = []
     for name in ("batched_gemm", "tile_chain", "lr_sample"):
-        head = results[(name, HEADLINE[name], "float64")]
+        head = next(r for (k, _, d), r in results.items()
+                    if k == name and d == "float64" and r["headline"])
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": main["launches"][name],
@@ -411,7 +462,7 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
-            "shape": HEADLINE[name], "dtype": "float64",
+            "shape": head["shape"], "dtype": "float64",
             "checked": sorted({f"{lbl} {d}" for (k, lbl, d) in results
                                if k == name}),
         })

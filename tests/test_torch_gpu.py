@@ -6,7 +6,8 @@ so it runs on a machine without JAX:
     python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances as in tests/test_kernels.py (f64 1e-12, f32 1e-5, bf16 5e-2,
-bf16 accumulating in f32), atol scaled by the contraction length.
+bf16 accumulating in f32), relative to the largest |plain output|; each
+check must also reject a planted fault (one rank or one j term dropped).
 """
 
 import pytest
@@ -30,27 +31,35 @@ def cuda_device():
                                    torch.bfloat16])
 def test_cuda_kernels_match_plain(cuda_device, dtype):
     """On the card: each kernel against its plain version, ragged shapes."""
-    rtol, atol = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-5),
-                  torch.bfloat16: (5e-2, 5e-2)}[dtype]
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5,
+           torch.bfloat16: 5e-2}[dtype]
     g = torch.Generator(device=cuda_device).manual_seed(0)
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
 
+    def err(got, want):
+        return float((got.double() - want.double()).abs().max())
+
     ops.reset_launch_counts()
     A, B = rnd(5, 96, 24), rnd(5, 24, 20)
-    ranks = torch.randint(0, 25, (5,), generator=g, device=cuda_device,
+    ranks = torch.randint(1, 25, (5,), generator=g, device=cuda_device,
                           dtype=torch.int32)
     U, V, X = rnd(3, 96, 24), rnd(3, 96, 24), rnd(3, 96, 70)
     Ui, Vi, W2 = rnd(5, 2, 96, 24), rnd(5, 2, 96, 24), rnd(2, 96, 20)
-    for got, want, scale in (
+    for got, want, fault in (
             (ops.batched_gemm(A, B, ranks),
-             tbg.batched_gemm_plain(A, B, ranks), 24 ** 0.5),
+             tbg.batched_gemm_plain(A, B, ranks),
+             tbg.batched_gemm_plain(A, B, ranks - 1)),
             (ops.tile_chain(U, V, X, width=17),
-             ttc.tile_chain_plain(U, V, X, width=17), 96 ** 0.5),
+             ttc.tile_chain_plain(U, V, X, width=17),
+             ttc.tile_chain_plain(U, V, X, width=16)),
             (ops.lr_sample(Ui, Vi, W2), tlr.lr_sample_plain(Ui, Vi, W2),
-             2 * 96 ** 0.5)):
-        torch.testing.assert_close(got.double(), want.double(), rtol=rtol,
-                                   atol=atol * scale * 24)
+             tlr.lr_sample_plain(Ui[:, :1].contiguous(),
+                                 Vi[:, :1].contiguous(),
+                                 W2[:1].contiguous()))):
+        atol = tol * float(want.double().abs().max())
+        assert err(got, want) <= atol
+        assert err(fault, want) > atol
     assert ops.launch_counts() == {"batched_gemm": 1, "tile_chain": 1,
                                    "lr_sample": 1}
