@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the H2OPUS-TLR reproduction (``repro``).
 
-Compress a dense SPD operator into tile low rank form, factor it with the
-left-looking ARA Cholesky or LDL^T, then solve, take log-determinants and
-draw samples -- on an NVIDIA Hopper card, with the Pallas TPU kernels of
+Compress a dense SPD operator into tile low rank form, round it, factor it
+with the left-looking ARA Cholesky or LDL^T or with the right-looking
+driver (flat, sequential), then solve, take log-determinants and draw
+samples -- on an NVIDIA Hopper card, with the five Pallas TPU kernels of
 the JAX package replaced by hand-written CUDA kernels (``kernels/csrc``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,

@@ -1,7 +1,10 @@
-"""Left-looking TLR Cholesky / LDL^T with batched ARA (Algorithms 4-6, 10).
+"""TLR Cholesky / LDL^T: the left-looking ARA driver (Algorithms 4-6, 10)
+and the right-looking driver.
 
-Port of the left-looking driver of ``repro/core/cholesky.py`` (:86-142,
-:147-358, :443-760, :795-1142). Per block column ``k`` (host-driven):
+Port of ``repro/core/cholesky.py`` (:86-142, :147-358, :443-760,
+:795-1142 left; :1148-1623 right). ``CholOptions.algo`` picks the driver.
+
+Left-looking (default). Per block column ``k`` (host-driven):
 
   1. dense diagonal update  A(k,k) -= sum_j L(k,j) D_j L(k,j)^T
      (Schur-compensated by default, section 5.1.1),
@@ -9,7 +12,7 @@ Port of the left-looking driver of ``repro/core/cholesky.py`` (:86-142,
      eigenvalue-clamp fallback (section 5.1.2),
   3. ARA compression of every updated tile in the column: the expression
      ``A(i,k) - sum_j L(i,j) D_j L(k,j)^T`` is sampled through the product
-     chain of Eq. 2 / Eq. 3, whose GEMMs are the port's three CUDA kernels
+     chain of Eq. 2 / Eq. 3, whose GEMMs are the port's CUDA kernels
      (``batched_gemm``, ``tile_chain``, ``lr_sample``) on the card,
   4. batched triangular solve  V(i,k) = L(k,k)^{-1} B_i  (+ D^{-1} for
      LDL^T), and an in-place ``index_add_`` of the panel into the factor.
@@ -20,8 +23,16 @@ and their slots refilled. Each column's batch is zero-padded up to a
 (T, J) bucket pair of a power-of-two ladder, as in the JAX package, so both
 packages run the same padded batches.
 
-Not in this port yet (each raises): ``algo="right"``, pivoting,
-``check=True`` and ``batching`` other than ``"flat"``.
+Right-looking (``algo="right"``, flat batching, sequential schedule). Per
+column: dense-factor the diagonal tile (already fully updated), round the
+column's accumulated tiles and TRSM them (``core/algebra.py``:
+``batched_qr`` + ``small_svd`` + ``batched_gemm``), then push the column's
+rank-r Schur update onto every trailing tile as an appended factor pair
+(``tlr_syrk_column``); every ``right_flush`` columns one rounding pass
+compacts the accumulation buffers.
+
+Not in this port yet (each raises): pivoting, ``check=True``,
+``lookahead=True`` and ``batching`` other than ``"flat"``.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .algebra import tlr_round_tiles, tlr_syrk_column
 from .ara import (ARAParams, ara_compress_dense, ara_iteration, init_state,
                   run_ara_fused, torch_probes)
 from .buckets import _bucket_ladder, _bucket_up, _column_buckets, _pad_axis
@@ -50,8 +62,9 @@ class CholOptions:
     eps: float = 1e-6
     bs: int = 16
     r_max_out: int = 0            # 0 => A.r_max
-    algo: str = "left"            # only the left-looking driver is ported
-    mode: str = "dynamic"         # "dynamic" | "fused"
+    algo: str = "left"            # "left" (ARA sampling) | "right" (eager
+                                  # updates; flat, sequential)
+    mode: str = "dynamic"         # "dynamic" | "fused" (left-looking only)
     bucket: int = 0               # 0 => whole column in one batch
     share_omega: bool = True      # share Omega across the column
     schur: Optional[str] = "diag" # None | "diag" | "full"
@@ -61,8 +74,15 @@ class CholOptions:
     calib: float = 1.0
     gs_passes: int = 2
     max_iters: int = 0            # ARA iteration cap; 0 => r_max // bs
+    right_flush: int = 0          # algo="right": columns of rank-r appends
+                                  # accumulated between trailing rounding
+                                  # passes; 0 => 2 (the JAX package's flat
+                                  # auto policy)
     batching: str = "flat"        # only "flat" is ported (JAX default "auto")
     seed: int = 0
+    lookahead: bool = False       # algo="right" lookahead schedule: not
+                                  # ported, must stay False (ignored by
+                                  # algo="left", as in the JAX package)
     check: bool = False           # not ported: must stay False
     probes: Optional[Probes] = None
                                   # probes(k, it, shape, dtype, device): the
@@ -77,11 +97,20 @@ class CholOptions:
 
 
 def _validate(opts: CholOptions) -> None:
-    if opts.algo != "left":
-        raise NotImplementedError(f"algo={opts.algo!r}: only the "
-                                  "left-looking driver is ported")
+    if opts.algo not in ("left", "right"):
+        raise ValueError(f"algo must be 'left' or 'right', got {opts.algo!r}")
     if opts.pivot is not None:
+        if opts.algo == "right":
+            raise ValueError(
+                "inter-tile pivoting (Algorithm 9) needs the left-looking "
+                "driver's running diagonal-update sums and is not supported "
+                f"with algo='right'; use algo='left' (got "
+                f"pivot={opts.pivot!r})")
         raise NotImplementedError("inter-tile pivoting is not ported")
+    if opts.algo == "right" and opts.lookahead:
+        raise NotImplementedError("lookahead=True (the right-looking "
+                                  "LookaheadSchedule) is not ported; the "
+                                  "port runs the sequential schedule")
     if opts.check:
         raise NotImplementedError("check=True (health/recovery) is not ported")
     if opts.batching != "flat":
@@ -478,21 +507,28 @@ def _column_ara_dynamic(pipe: _ColumnPipeline, A, L, rows, k, dvec, Lkk,
 
 
 def tlr_cholesky(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
-    """Left-looking TLR Cholesky (Algorithm 6)."""
-    return _factorize(A, dataclasses.replace(opts, ldl=False))
+    """TLR Cholesky: left-looking (Algorithm 6) or, with
+    ``opts.algo="right"``, right-looking."""
+    return _dispatch(A, dataclasses.replace(opts, ldl=False))
 
 
 def tlr_ldlt(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
-    """Left-looking TLR LDL^T (Algorithm 10). Pivoting is undefined for
-    LDL^T (paper 5.3) and Schur compensation is off."""
+    """TLR LDL^T (Algorithm 10; right-looking with ``opts.algo="right"``).
+    Pivoting is undefined for LDL^T (paper 5.3) and Schur compensation is
+    off."""
     if opts.pivot is not None:
         raise ValueError("inter-tile pivoting is not defined for LDL^T "
                          "(section 5.3)")
-    return _factorize(A, dataclasses.replace(opts, ldl=True, schur=None))
+    return _dispatch(A, dataclasses.replace(opts, ldl=True, schur=None))
+
+
+def _dispatch(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
+    _validate(opts)
+    return _factorize_right(A, opts) if opts.algo == "right" \
+        else _factorize(A, opts)
 
 
 def _factorize(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
-    _validate(opts)
     nb, b = A.nb, A.b
     r_out = opts.r_max_out or A.r_max
     p = opts.ara_params(r_out)
@@ -588,3 +624,157 @@ def _factorize(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
     stats["project_traces"] = len(pipe.shapes["project"])
     stats["diag_traces"] = len(pipe.shapes["diag"])
     return TLRFactorization(L=Lout, d=dvec, perm=perm, stats=stats)
+
+
+# -- right-looking driver ----------------------------------------------------------
+
+
+def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
+    """Right-looking TLR Cholesky / LDL^T on the batched tile algebra (port
+    of ``repro/core/cholesky.py:1204-1623``: flat batching, sequential
+    schedule).
+
+    Per column: factor the (already fully updated) dense diagonal tile,
+    round + TRSM the column's accumulated panel, then push the column's
+    rank-r Schur update onto the trailing matrix (``tlr_syrk_column``).
+    Trailing tiles carry growing concatenated factors; a rounding pass over
+    the whole grid compacts them whenever the next append would overflow
+    the accumulation width, i.e. every ``right_flush`` columns. No sampling
+    chain, no ARA: ``mode`` / ``bs`` / ``share_omega`` / ``schur`` are
+    left-looking knobs and are ignored here.
+    """
+    nb, b = A.nb, A.b
+    nt = A.U.shape[0]
+    r_p = opts.r_max_out or A.r_max
+    flush_cols = max(1, int(opts.right_flush)) if opts.right_flush else 2
+    w_acc = max(b, A.r_max) + flush_cols * r_p
+
+    # Accumulation buffers: every off-diagonal tile's running low-rank
+    # concatenation, seeded with A's factors and updated in place. ``used``
+    # is the uniform first-free column: every live tile (i, j), j > k,
+    # receives one rank-r_p append per factored column.
+    accU = A.U.new_zeros((nt, b, w_acc))
+    accV = A.V.new_zeros((nt, b, w_acc))
+    accU[:, :, :A.r_max] = A.U
+    accV[:, :, :A.r_max] = A.V
+    Lout = zeros_like_structure(nb, b, r_p, A.dtype, A.device)
+    dvec = A.D.new_zeros((nb, b)) if opts.ldl else None
+    ladder = _bucket_ladder(nb - 1)
+    stats = {
+        "column_iters": [], "column_ranks": [], "modified_chol": 0,
+        "pivots": [], "mode": opts.mode,
+        "impl": "cuda" if A.D.is_cuda else "plain", "algo": "right",
+        "bucket_ladder": list(ladder), "column_events": [],
+        "column_traces": 0, "project_traces": 0, "diag_traces": 0,
+        "safety_valve": False, "flushes": 0, "acc_width": w_acc,
+        "batching": "flat", "append_widths": [],
+        "policy": {"requested": opts.batching, "batching": "flat",
+                   "right_flush": flush_cols},
+    }
+    # The trailing diagonal tiles are updated in place: work on a copy so
+    # the caller's operator stays as it was.
+    D = A.D.clone()
+    used = [A.r_max]
+    col = [{} for _ in range(nb)]
+    panel_shapes: set[int] = set()
+
+    def _diag_stage(k: int):
+        def fn():
+            Lkk, dk_new = _factor_diag_tile(D[k], opts, stats)
+            if opts.ldl:
+                dvec[k] = dk_new
+            Lout.D[k] = Lkk
+            col[k].update(Lkk=Lkk, dk=dk_new)
+
+        return fn
+
+    def _panel_stage(k: int):
+        # One rounding pass over the column's accumulated tiles (row batch
+        # padded up the bucket ladder, as in the JAX package), batched TRSM,
+        # then the in-place scatter of the panel into the factor.
+        rows = np.arange(k + 1, nb)
+        T = len(rows)
+        Tb = _bucket_up(T, ladder)
+        tidx = torch.as_tensor(rows * (rows - 1) // 2 + k, device=A.device)
+        c = col[k]
+
+        def fn():
+            c["t0"] = time.perf_counter()
+            c["traced"] = Tb not in panel_shapes
+            panel_shapes.add(Tb)
+            aU = _pad_axis(accU[tidx], Tb)
+            aV = _pad_axis(accV[tidx], Tb)
+            Q, B, ranks, err = tlr_round_tiles(aU, aV, opts.eps, r_out=r_p)
+            Vn = _trsm(c["Lkk"], c["dk"], B, opts.ldl)
+            Qs, Vns, ranks = Q[:T], Vn[:T], ranks[:T]
+            Lout.U.index_add_(0, tidx, Qs)
+            Lout.V.index_add_(0, tidx, Vns)
+            Lout.ranks.index_add_(0, tidx, ranks)
+            c.update(Qs=Qs, Vns=Vns, ranks=ranks, err=err[:T], T=T, Tb=Tb,
+                     ranks_h=ranks.cpu().numpy())
+
+        return fn
+
+    def _update_stage(k: int):
+        c = col[k]
+
+        def fn():
+            if used[0] + r_p > w_acc:
+                # Flush: recompress every tile's accumulated concatenation
+                # back to width b in one batched rounding pass over the
+                # whole grid (tiles of factored columns are dead; rounding
+                # them too keeps one batch shape, as in the JAX package).
+                Uc, Vc, _, _ = tlr_round_tiles(accU, accV, opts.eps, r_out=b)
+                accU.zero_()
+                accV.zero_()
+                accU[:, :, :b] = Uc
+                accV[:, :, :b] = Vc
+                used[0] = b
+                stats["flushes"] += 1
+            tlr_syrk_column(accU, accV, used[0], D, c["Qs"], c["Vns"],
+                            c["ranks"], c["dk"], k)
+            used[0] += r_p
+            if D.is_cuda:
+                # Drain the column's work before timing it (the JAX
+                # sequential driver blocks here too).
+                torch.cuda.synchronize(D.device)
+            stats["column_iters"].append(1)
+            stats["column_ranks"].append(c["ranks_h"])
+            stats["column_events"].append({
+                "k": k, "T": c["T"], "Tb": c["Tb"], "Jb": 0,
+                "seconds": time.perf_counter() - c["t0"],
+                "traced": c["traced"], "err": c["err"].cpu().numpy(),
+                "wQ": None,
+            })
+            for key in ("Qs", "Vns", "ranks", "err"):
+                c.pop(key)
+
+        return fn
+
+    # Stage graph of the JAX package's sequential right-looking driver:
+    # ("acc", k) / ("Dv", k) are the accumulation / diagonal state after
+    # column k's trailing update; the update overwrites both in place.
+    stages = []
+
+    def add(name, kind, k, fn, reads=(), writes=(), destroys=()):
+        stages.append(Stage(name=name, kind=kind, k=k, fn=fn,
+                            reads=tuple(reads), writes=tuple(writes),
+                            destroys=tuple(destroys), seq=len(stages)))
+
+    for k in range(nb):
+        add(f"diag:{k}", "diag", k, _diag_stage(k),
+            reads=[("Dv", k - 1)] if k else [], writes=[("Lkk", k)])
+        if k + 1 >= nb:
+            continue
+        add(f"panel:{k}", "panel", k, _panel_stage(k),
+            reads=([("acc", k - 1)] if k else []) + [("Lkk", k)],
+            writes=[("panel", k)])
+        add(f"update:{k}", "update", k, _update_stage(k),
+            reads=[("panel", k)],
+            destroys=[("acc", k - 1), ("Dv", k - 1)] if k else [],
+            writes=[("acc", k), ("Dv", k)])
+    sched = run_graph(stages, SequentialSchedule())
+    sched["requested_lookahead"] = False
+    stats["schedule"] = sched
+    stats["column_traces"] = len(panel_shapes)
+    return TLRFactorization(L=Lout, d=dvec, perm=np.arange(nb), stats=stats)

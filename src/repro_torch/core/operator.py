@@ -5,11 +5,11 @@ solve/logdet/sample (section 6).
 
 * ``TLROperator`` wraps a ``TLRMatrix``: ``compress`` / ``from_dense`` /
   ``from_kernel`` (one batched SVD or batched ARA over all nt tiles),
-  ``matvec`` / ``@``, ``to_dense``, ``memory_stats``, and ``cholesky`` /
+  ``matvec`` / ``@``, ``to_dense``, ``memory_stats``, ``round`` (the
+  batched rounding pass of ``core/algebra.py``), and ``cholesky`` /
   ``ldlt`` returning a factorization handle.
-* ``TLRFactorization`` is the result handle of the left-looking
-  factorizations: ``solve``, ``tri_matvec``, ``tri_solve``, ``logdet`` and
-  ``sample``.
+* ``TLRFactorization`` is the result handle of the factorizations:
+  ``solve``, ``tri_matvec``, ``tri_solve``, ``logdet`` and ``sample``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -206,16 +206,29 @@ class TLROperator:
     def memory_stats(self) -> dict:
         return self.A.memory_stats()
 
+    def round(self, eps: float, r_max_out: Optional[int] = None, *,
+              batching: str = "flat") -> "TLROperator":
+        """Recompress every off-diagonal tile at ``eps`` (one batched QR +
+        small-SVD pass, ``core/algebra.py::tlr_round``; flat batching
+        only, the JAX default ``"auto"`` is not ported)."""
+        from .algebra import tlr_round
+
+        return TLROperator(tlr_round(self.A, eps, r_max_out,
+                                     batching=batching))
+
     # -- factorization ----------------------------------------------------
 
     def cholesky(self, opts=None) -> "TLRFactorization":
-        """Left-looking TLR Cholesky (Algorithm 6); returns the handle."""
+        """TLR Cholesky; ``opts.algo`` picks the left-looking ARA driver
+        (Algorithm 6, default) or the right-looking one. Returns the
+        handle."""
         from .cholesky import CholOptions, tlr_cholesky
 
         return tlr_cholesky(self.A, opts or CholOptions())
 
     def ldlt(self, opts=None) -> "TLRFactorization":
-        """Left-looking TLR LDL^T (Algorithm 10); returns the handle."""
+        """TLR LDL^T (Algorithm 10, or right-looking with
+        ``opts.algo="right"``); returns the handle."""
         from .cholesky import CholOptions, tlr_ldlt
 
         return tlr_ldlt(self.A, opts or CholOptions())

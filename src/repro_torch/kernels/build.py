@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("batched_gemm", "tile_chain", "lr_sample")
+SOURCES = ("batched_gemm", "tile_chain", "lr_sample", "batched_qr",
+           "small_svd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,8 +38,18 @@ _SIGNATURES = {
     "batched_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tile_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "lr_sample": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "batched_qr": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "small_svd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
+# dtypes each kernel is built for (the JAX package's tests sweep QR and SVD
+# in f64 and f32 only).
+DTYPES = {name: tuple(SUFFIX) for name in SOURCES}
+DTYPES.update(batched_qr=(torch.float64, torch.float32),
+              small_svd=(torch.float64, torch.float32))
+# Kernels that also export ``repro_<name>_scratch_<suffix>(dim, dim)``: the
+# words of device scratch a tile needs (0 when it works in shared memory).
+SCRATCH = ("batched_qr", "small_svd")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_INFO: dict = {}
@@ -110,20 +121,32 @@ def library(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_all()
         lib = ctypes.CDLL(str(path))
-        for sfx in SUFFIX.values():
-            fn = getattr(lib, f"repro_{name}_{sfx}")
+        for dtype in DTYPES[name]:
+            fn = getattr(lib, f"repro_{name}_{SUFFIX[dtype]}")
             fn.argtypes = _SIGNATURES[name]
             fn.restype = ctypes.c_int
+            if name in SCRATCH:
+                fn = getattr(lib, f"repro_{name}_scratch_{SUFFIX[dtype]}")
+                fn.argtypes = [_I, _I]
+                fn.restype = ctypes.c_longlong
         _LIBS[name] = lib
     return lib
 
 
 def entry(name: str, dtype: torch.dtype):
     """The C entry point of kernel ``name`` for ``dtype``."""
-    if dtype not in SUFFIX:
+    if dtype not in DTYPES[name]:
         raise TypeError(f"{name}: dtype {dtype} not supported "
-                        f"(float64, float32, bfloat16)")
+                        f"({', '.join(str(d) for d in DTYPES[name])})")
     return getattr(library(name), f"repro_{name}_{SUFFIX[dtype]}")
+
+
+def scratch_words(name: str, dtype: torch.dtype, d0: int, d1: int) -> int:
+    """Words of device scratch a tile of kernel ``name`` needs at (d0, d1),
+    as the kernel's own source decides; 0 when it works in shared memory."""
+    entry(name, dtype)  # checks the dtype, builds and loads the library
+    return int(getattr(library(name),
+                       f"repro_{name}_scratch_{SUFFIX[dtype]}")(d0, d1))
 
 
 def check(name: str, err: int) -> None:

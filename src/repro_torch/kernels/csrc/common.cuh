@@ -126,6 +126,14 @@ __device__ __forceinline__ void store_tile(const Acc (&acc)[Cfg::TM][Cfg::TN], i
   }
 }
 
+// Sum over the 32 lanes of a warp; every lane gets the result.
+template <typename Acc>
+__device__ __forceinline__ Acc warp_sum(Acc v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <class Kernel>
 inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes) {

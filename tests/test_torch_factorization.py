@@ -111,7 +111,8 @@ def test_eps_contract_with_torch_probes(problem, case):
 
 def test_unported_options_raise(problem):
     _, _, At = problem
-    for opts, err in ((CholOptions(algo="right"), NotImplementedError),
+    for opts, err in ((CholOptions(algo="right", lookahead=True),
+                       NotImplementedError),
                       (CholOptions(pivot="frobenius"), NotImplementedError),
                       (CholOptions(check=True), NotImplementedError),
                       (CholOptions(batching="auto"), ValueError)):

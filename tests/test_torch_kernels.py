@@ -169,4 +169,5 @@ def test_cuda_requests_raise_without_a_card(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         ops.tile_chain(m, m, m)
     assert ops.launch_counts() == {"batched_gemm": 0, "tile_chain": 0,
-                                   "lr_sample": 0}
+                                   "lr_sample": 0, "batched_qr": 0,
+                                   "small_svd": 0}
