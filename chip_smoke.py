@@ -153,7 +153,8 @@ def kernel_cases(torch, ranks_a, device="cuda"):
     scaled so that outputs are O(1); the square QR inputs are shifted by
     3 I so that Q is well conditioned (a random square panel's Q moves by
     cond x rounding). ``fault`` is the plain version with one rank
-    (``batched_gemm``, ``tile_chain``), the last j term (``lr_sample``), the
+    (``batched_gemm``), one factor column (``tile_chain``: ``width`` one
+    less), the last j term (``lr_sample``), the
     last column (``batched_qr``) or seven of the eight sweeps
     (``small_svd``) dropped: a result the gate must reject. ``post`` maps a
     raw result to the outputs that are gated (None: the result itself);
@@ -189,18 +190,22 @@ def kernel_cases(torch, ranks_a, device="cuda"):
                     2.0 * m * n * rs, None)
         return make
 
-    def chain(T, b, r, s):
+    def chain(T, b, r, s, width=None):
+        # factors of row stride r read at ``width`` columns (all r if None)
+        w = r if width is None else width
+
         def make(dtype):
-            U = randn((T, b, r), dtype, 1 / math.sqrt(r))
+            U = randn((T, b, r), dtype, 1 / math.sqrt(w))
             V = randn((T, b, r), dtype, 1 / math.sqrt(b))
             X = randn((T, b, s), dtype)
             isz = U.element_size()
-            return (lambda: tc.tile_chain_cuda(U, V, X),
-                    lambda: tc.tile_chain_plain(U, V, X),
-                    lambda: tc.tile_chain_plain(U, V, X, width=r - 1),
-                    lambda: torch.einsum("tbr,tcr,tcs->tbs", U, V, X),
-                    (2 * T * b * r + 2 * T * b * s) * isz,
-                    4.0 * T * b * r * s, None)
+            return (lambda: tc.tile_chain_cuda(U, V, X, width=width),
+                    lambda: tc.tile_chain_plain(U, V, X, width=width),
+                    lambda: tc.tile_chain_plain(U, V, X, width=w - 1),
+                    lambda: torch.einsum("tbr,tcr,tcs->tbs", U[..., :w],
+                                         V[..., :w], X),
+                    (2 * T * b * w + 2 * T * b * s) * isz,
+                    4.0 * T * b * w * s, None)
         return make
 
     def lrs(T, k, b, r, s):
@@ -274,6 +279,10 @@ def kernel_cases(torch, ranks_a, device="cuda"):
          chain(1890, 512, 128, 128)),
         ("tile_chain", "ragged T=3 b=96 r=24 s=70", False,
          chain(3, 96, 24, 70)),
+        ("tile_chain", "ragged T*J=1891 b=500 ldr=128 width=100 s=128", False,
+         chain(1891, 500, 128, 128, width=100)),
+        ("tile_chain", "FMA past the tensor cores T=3 b=100 ldr=160 width=129 s=70",
+         False, chain(3, 100, 160, 70, width=129)),
         ("lr_sample", "T=63 J=30 b=512 r=128 s=16", True,
          lrs(63, 30, 512, 128, 16)),
         ("lr_sample", "T=32 J=46 b=512 r=128 s=16", False,
@@ -310,11 +319,15 @@ def gate(got, want, tol: float) -> tuple[float, float]:
     return worst
 
 
-def check_kernels(ranks_a) -> dict:
+def check_kernels(ranks_a, only=None) -> dict:
+    """Every case of ``kernel_cases`` (those of the kernels named in
+    ``only``, if given): gate, planted fault and timings."""
     import torch
     all_dtypes = (torch.float64, torch.float32, torch.bfloat16)
     results = {}
     for name, label, headline, make in kernel_cases(torch, ranks_a):
+        if only is not None and name not in only:
+            continue
         for dtype in (all_dtypes[:2] if name in ("batched_qr", "small_svd")
                       else all_dtypes):
             dn = str(dtype).removeprefix("torch.")

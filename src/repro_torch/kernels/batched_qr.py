@@ -84,7 +84,7 @@ def batched_qr_cuda(Y: torch.Tensor, sweeps: int = 2):
     if Q.numel() == 0:
         return Q, R.zero_()
     # The kernel's source decides whether the panel fits in shared memory.
-    words = build.scratch_words("batched_qr", Y.dtype, b, r)
+    words = build.query("batched_qr", "scratch", Y.dtype, b, r)
     work = Y.new_empty((T, words)) if words else None
     fn = build.entry("batched_qr", Y.dtype)
     err = fn(Y.data_ptr(), Q.data_ptr(), R.data_ptr(),

@@ -47,9 +47,13 @@ SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
 DTYPES = {name: tuple(SUFFIX) for name in SOURCES}
 DTYPES.update(batched_qr=(torch.float64, torch.float32),
               small_svd=(torch.float64, torch.float32))
-# Kernels that also export ``repro_<name>_scratch_<suffix>(dim, dim)``: the
-# words of device scratch a tile needs (0 when it works in shared memory).
-SCRATCH = ("batched_qr", "small_svd")
+# Shape queries that kernels also export, ``repro_<name>_<query>_<suffix>(dim,
+# dim)``, with their return types: "scratch", the words of device scratch a
+# tile needs (0 when it works in shared memory); "config", the kernel
+# configuration the source chooses for the shapes (-1: none fits).
+QUERIES = {"batched_qr": ("scratch", ctypes.c_longlong),
+           "small_svd": ("scratch", ctypes.c_longlong),
+           "tile_chain": ("config", ctypes.c_int)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_INFO: dict = {}
@@ -125,10 +129,11 @@ def library(name: str) -> ctypes.CDLL:
             fn = getattr(lib, f"repro_{name}_{SUFFIX[dtype]}")
             fn.argtypes = _SIGNATURES[name]
             fn.restype = ctypes.c_int
-            if name in SCRATCH:
-                fn = getattr(lib, f"repro_{name}_scratch_{SUFFIX[dtype]}")
+            if name in QUERIES:
+                query, restype = QUERIES[name]
+                fn = getattr(lib, f"repro_{name}_{query}_{SUFFIX[dtype]}")
                 fn.argtypes = [_I, _I]
-                fn.restype = ctypes.c_longlong
+                fn.restype = restype
         _LIBS[name] = lib
     return lib
 
@@ -141,12 +146,12 @@ def entry(name: str, dtype: torch.dtype):
     return getattr(library(name), f"repro_{name}_{SUFFIX[dtype]}")
 
 
-def scratch_words(name: str, dtype: torch.dtype, d0: int, d1: int) -> int:
-    """Words of device scratch a tile of kernel ``name`` needs at (d0, d1),
-    as the kernel's own source decides; 0 when it works in shared memory."""
+def query(name: str, query: str, dtype: torch.dtype, d0: int, d1: int) -> int:
+    """The answer of kernel ``name``'s source to shape query ``query`` (see
+    ``QUERIES``) at (d0, d1)."""
     entry(name, dtype)  # checks the dtype, builds and loads the library
     return int(getattr(library(name),
-                       f"repro_{name}_scratch_{SUFFIX[dtype]}")(d0, d1))
+                       f"repro_{name}_{query}_{SUFFIX[dtype]}")(d0, d1))
 
 
 def check(name: str, err: int) -> None:

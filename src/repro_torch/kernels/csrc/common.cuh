@@ -7,7 +7,8 @@
 // running plain FMA loops on them. Operands are read through small device
 // lambdas, so one routine serves row-major, transposed and shared-memory
 // operands alike, and every load is bounds-checked (ragged b, r and s need
-// no padding on the host).
+// no padding on the host). The f64 tensor-core instruction and `cp.async`
+// copies are wrapped below for kernels that stage their own operands.
 //
 // Element types: double, float and __nv_bfloat16. bf16 accumulates in
 // float, as the Pallas kernels accumulate bf16 products in f32.
@@ -132,6 +133,44 @@ __device__ __forceinline__ Acc warp_sum(Acc v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// FP64 tensor-core product (DMMA, sm_90): one warp computes
+// d[16x8] += A[16x8] B[8x8]. Fragments (PTX ISA, mma.m16n8k8 .f64, as in
+// CUTLASS's SM90_16x8x8_F64F64F64F64_TN), with lane = 4 g + q:
+//   a = {A[g][q], A[g + 8][q], A[g][q + 4], A[g + 8][q + 4]},
+//   b = {B[q][g], B[q + 4][g]},
+//   d = {D[g][2q], D[g][2q + 1], D[g + 8][2q], D[g + 8][2q + 1]}.
+// On the H100 this shape (like m16n8k4 and m16n8k16) runs at the FP64
+// tensor-core peak; m8n8k4 runs at half of it (tools/dmma_rate.cu).
+__device__ __forceinline__ void mma_m16n8k8_f64(double (&d)[4], const double (&a)[4],
+                                                const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// Asynchronous copy of BYTES (8 or 16) from device to shared memory
+// (sm_80+): the first `src_bytes` come from src, the rest are zero-filled
+// (src is not read when src_bytes is 0).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Waits until at most N of this thread's copy groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.

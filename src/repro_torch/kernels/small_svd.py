@@ -115,7 +115,7 @@ def small_svd_cuda(M: torch.Tensor, sweeps: int = SWEEPS):
         return U, s, V
     # The kernel's source decides whether the working matrix fits in shared
     # memory.
-    words = build.scratch_words("small_svd", M.dtype, m, n)
+    words = build.query("small_svd", "scratch", M.dtype, m, n)
     work = M.new_empty((T, words)) if words else None
     fn = build.entry("small_svd", M.dtype)
     err = fn(M.data_ptr(), U.data_ptr(), s.data_ptr(), V.data_ptr(),

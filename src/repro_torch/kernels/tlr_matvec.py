@@ -2,10 +2,14 @@
 
 Port of the Pallas TPU kernel ``tile_chain_pallas`` (``_tile_chain_kernel``,
 src/repro/kernels/tlr_matvec.py:23-61). The CUDA kernel is
-``csrc/tile_chain.cu``: grid (T, column chunks); each block forms
-``W = V[t]^T X[t][:, chunk]`` in shared memory and writes ``U[t] @ W``, so
-the intermediate stays on chip. What bounds it on the H100 and what the
-design does about it is noted in the source.
+``csrc/tile_chain.cu``: each block forms ``W = V[t]^T X[t][:, chunk]`` on
+chip and writes ``U[t] @ W``, so the intermediate never touches device
+memory. In f64 with s > 16 and r <= 128 (the projection chains of
+``sample_t``) it runs on the FP64 tensor cores, one block per tile and
+128-column chunk, with W in registers; every other shape runs plain FMA
+loops with W in shared memory. The source chooses by shape, and
+:func:`_config` asks it before the launch. What bounds it on the H100 and
+what the design does about it is noted in the source.
 
 :func:`tile_chain` launches the kernel for CUDA tensors and runs
 :func:`tile_chain_plain` for CPU tensors; there is no fallback between the
@@ -21,8 +25,20 @@ from . import build
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 
-# The 64-column chunk keeps r * 64 accumulator words in shared memory.
-_WIDE_SMEM_LIMIT = 160 * 1024
+# Kernel configurations, as ``config`` in csrc/tile_chain.cu numbers them.
+NARROW, WIDE, DMMA = 0, 1, 2
+
+
+def _config(dtype: torch.dtype, r: int, s: int) -> int:
+    """The kernel configuration that csrc/tile_chain.cu chooses for factor
+    width ``r`` and ``s`` columns: the f64 tensor-core kernel where it
+    applies, else the FMA kernel with 64-column chunks (s > 16) or
+    16-column chunks (s <= 16, or a wide r)."""
+    cfg = build.query("tile_chain", "config", dtype, r, s)
+    if cfg < 0:
+        raise ValueError(f"tile_chain: width {r} too large for the "
+                         f"shared-memory intermediate")
+    return cfg
 
 
 def tile_chain_plain(U: torch.Tensor, V: torch.Tensor, X: torch.Tensor,
@@ -56,14 +72,10 @@ def tile_chain_cuda(U: torch.Tensor, V: torch.Tensor, X: torch.Tensor,
     out = torch.empty((T, b, s), dtype=U.dtype, device=U.device)
     if out.numel() == 0:
         return out
-    acc_bytes = 8 if U.dtype == torch.float64 else 4
-    wide = int(s > 16 and r * 64 * acc_bytes <= _WIDE_SMEM_LIMIT)
-    if r * 16 * acc_bytes > _WIDE_SMEM_LIMIT:
-        raise ValueError(f"tile_chain: width {r} too large for the "
-                         f"shared-memory intermediate")
+    cfg = _config(U.dtype, r, s)
     fn = build.entry("tile_chain", U.dtype)
     err = fn(U.data_ptr(), V.data_ptr(), X.data_ptr(), out.data_ptr(),
-             T, b, r, ldr, s, wide, build.stream_handle(U))
+             T, b, r, ldr, s, cfg, build.stream_handle(U))
     build.check("tile_chain", err)
     LAUNCHES += 1
     return out

@@ -8,6 +8,8 @@ so it runs on a machine without JAX:
 Tolerances as in tests/test_kernels.py (f64 1e-12, f32 1e-5, bf16 5e-2,
 bf16 accumulating in f32), relative to the largest |plain output|; each
 check must also reject a planted fault (one rank or one j term dropped).
+The f64 paths of ``tile_chain`` with s > 16 have their own ragged cases:
+the tensor-core kernel (r <= 128) and the FMA kernel past it.
 The rounding kernels run in f64 and f32: ``batched_qr`` is held to the
 same gate on Q and R, ``small_svd`` to ten times it on the sorted singular
 values and on the reconstruction ``U diag(s) V^T`` (its U and V columns of
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import batched_gemm as tbg
+from repro_torch.kernels import build
 from repro_torch.kernels import batched_qr as tqr
 from repro_torch.kernels import lr_sample as tlr
 from repro_torch.kernels import ops
@@ -71,6 +74,92 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
     assert ops.launch_counts() == {"batched_gemm": 1, "tile_chain": 1,
                                    "lr_sample": 1, "batched_qr": 0,
                                    "small_svd": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ldr,width,s,cfg", [
+    (128, None, 17, ttc.DMMA), (128, None, 128, ttc.DMMA),
+    (128, None, 200, ttc.DMMA), (128, 37, 17, ttc.DMMA),
+    (128, 37, 128, ttc.DMMA), (128, 37, 200, ttc.DMMA),
+    (160, None, 70, ttc.WIDE), (160, 129, 70, ttc.WIDE),
+])
+def test_cuda_tile_chain_f64_tensor_cores(cuda_device, ldr, width, s, cfg):
+    """On the card: the f64 paths of tile_chain with s > 16 against their
+    plain version, at b = 100 (not a multiple of the 16-row slices). The
+    tensor-core kernel takes all 128 factor columns or 37 of them by
+    ``width=``, at s = 17, 128 and 200 (two 128-column chunks); r = 160 and
+    129 go past it, to the FMA kernel with 64-column chunks."""
+    T, b = 3, 100
+    r = ldr if width is None else width
+    assert ttc._config(torch.float64, r, s) == cfg
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device,
+                           dtype=torch.float64)
+
+    U, V, X = rnd(T, b, ldr), rnd(T, b, ldr), rnd(T, b, s)
+    ops.reset_launch_counts()
+    got = ops.tile_chain(U, V, X, width=width)
+    want = ttc.tile_chain_plain(U, V, X, width=width)
+    fault = ttc.tile_chain_plain(U, V, X, width=r - 1)
+    atol = 1e-12 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= atol
+    assert float((fault - want).abs().max()) > atol
+    assert ops.launch_counts()["tile_chain"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,r,s,cfg", [
+    (torch.float64, 128, 128, ttc.DMMA),    # sample_t's projection chains
+    (torch.float64, 37, 17, ttc.DMMA),
+    (torch.float64, 128, 16, ttc.NARROW),   # the W2 hoist
+    (torch.float64, 129, 128, ttc.WIDE),    # r past the tensor-core kernel's W
+    (torch.float64, 321, 128, ttc.NARROW),
+    (torch.float32, 128, 128, ttc.WIDE),
+    (torch.bfloat16, 128, 16, ttc.NARROW),
+])
+def test_cuda_tile_chain_config_by_shape(cuda_device, dtype, r, s, cfg):
+    """tile_chain's kernel configuration comes from the shapes alone, as
+    csrc/tile_chain.cu decides before any launch: the f64 tensor-core
+    kernel for s > 16 and r <= 128, the FMA kernel otherwise."""
+    assert ttc._config(dtype, r, s) == cfg
+
+
+@pytest.mark.gpu
+def test_cuda_tile_chain_rejects_a_width_too_large(cuda_device):
+    """A width whose intermediate fits no configuration raises before any
+    launch, and a launch with another configuration than the source's is
+    refused."""
+    with pytest.raises(ValueError, match="too large"):
+        ttc._config(torch.float64, 1281, 128)
+    x = torch.zeros((1, 8, 32), device=cuda_device, dtype=torch.float64)
+    fn = build.entry("tile_chain", torch.float64)
+    err = fn(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+             1, 8, 32, 32, 32, ttc.WIDE, build.stream_handle(x))
+    assert err != 0
+
+
+@pytest.mark.gpu
+def test_cuda_tile_chain_f64_eight_byte_copies(cuda_device):
+    """The tensor-core path with 8-byte copies: U and V of odd row stride
+    (127) and X one element past a 16-byte boundary."""
+    T, b, ldr, s = 3, 100, 127, 128
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def rnd(n):
+        return torch.randn(n, generator=g, device=cuda_device,
+                           dtype=torch.float64)
+
+    U, V = rnd(T * b * ldr).view(T, b, ldr), rnd(T * b * ldr).view(T, b, ldr)
+    X = rnd(T * b * s + 1)[1:].view(T, b, s)
+    assert X.is_contiguous() and X.data_ptr() % 16 == 8
+    got = ops.tile_chain(U, V, X)
+    want = ttc.tile_chain_plain(U, V, X)
+    fault = ttc.tile_chain_plain(U, V, X, width=ldr - 1)
+    atol = 1e-12 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= atol
+    assert float((fault - want).abs().max()) > atol
 
 
 @pytest.mark.gpu

@@ -147,6 +147,24 @@ def test_tile_chain_width():
     _close(got, want, 1e-12, 1e-12 * 8)
 
 
+@pytest.mark.parametrize("ldr,width,s", [
+    (128, None, 17), (128, None, 128), (128, None, 200), (128, 37, 17),
+    (128, 37, 128), (128, 37, 200), (160, None, 70), (160, 129, 70),
+])
+def test_tile_chain_ragged_f64_matches_jax(ldr, width, s):
+    """The f64 shapes that tests/test_torch_gpu.py holds the card's kernels
+    to (b = 100, all factor columns or a ``width=`` slice, s from 17 to 200),
+    against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(7)
+    U, V, X = (rng.standard_normal(shape) for shape in
+               ((2, 100, ldr), (2, 100, ldr), (2, 100, s)))
+    got = ops.tile_chain(*(torch.from_numpy(a) for a in (U, V, X)),
+                         width=width)
+    want = tile_chain_pallas(jnp.asarray(U), jnp.asarray(V), jnp.asarray(X),
+                             interpret=True, width=width)
+    _close(got, want, 1e-12, 1e-12 * np.sqrt(100))
+
+
 def test_cuda_requests_raise_without_a_card(monkeypatch):
     """No silent CPU fallback: without a card, asking for the card raises,
     and the kernel launchers refuse CPU tensors."""

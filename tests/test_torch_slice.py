@@ -2,8 +2,8 @@
 quickstart path (covariance -> compress -> left-looking dynamic ARA
 Cholesky -> solve / logdet / sample / matvec) at n=512, tile 64, with the
 same probes on both sides; solving with a JAX-computed factor carried
-across through ``repro_torch.convert``; and the import rule (the port and
-chip_smoke.py import neither jax nor repro).
+across through ``repro_torch.convert``; and the import rule (the port,
+chip_smoke.py and tools/*.py import neither jax nor repro).
 
 Tolerances: the factorizations agree to ~1e-14 (see
 tests/test_torch_factorization.py), so solves, logdet and samples are held
@@ -123,7 +123,7 @@ def _imports(path: Path) -> set[str]:
 
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("*.py"))]
     assert len(files) > 10
     for path in files:
         bad = _imports(path) & {"jax", "jaxlib", "repro"}
