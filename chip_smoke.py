@@ -19,9 +19,11 @@ before it and read just after:
    residual and finite solves.
 
 Then it holds each kernel against its plain PyTorch version on the card
-(f64, f32 and bf16; f64 and f32 for the QR and SVD) at the paths' shapes,
-checks that each gate rejects a planted fault, and checks a small
-end-to-end run on the card against the same run on the CPU.
+(f64, f32 and bf16; f64 and f32 for the QR and SVD) at the paths' shapes
+(``lr_sample`` at each of the main path's column buckets), checks that each
+gate rejects a planted fault and that two kernel calls agree bit for bit,
+and checks a small end-to-end run on the card against the same run on the
+CPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``--n`` cuts the main path's size for a quick look;
@@ -77,6 +79,11 @@ REPLACES = {
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in KERNELS}
+# The (T, J) shapes of the main path's lr_sample calls: the left-looking
+# factorization's column buckets, _column_buckets(64, k, _bucket_ladder(63)) for k < 63
+# (src/repro_torch/core/buckets.py; tests/test_torch_kernels.py checks it).
+LR_BUCKETS = ((63, 30), (32, 46), (16, 54), (8, 58), (4, 60), (2, 61),
+              (1, 62))
 
 
 def log(msg: str) -> None:
@@ -144,9 +151,9 @@ def kernel_cases(torch, ranks_a, device="cuda"):
     """(name, shape label, headline, make(dtype) -> (kernel, plain, fault,
     library, bytes_needed, flops_needed, post)) at the paths' shapes.
 
-    Main path: N=32768, tile 512, r_max 128, bs 16 (T = 63 row tiles,
-    Jb = 30 / 46 buckets); ``ranks_a`` are the A-tile ranks the main path's
-    first column gives ``batched_gemm``. Rounding pass on that operator:
+    Main path: N=32768, tile 512, r_max 128, bs 16 (``lr_sample`` at each
+    (T, J) column bucket of ``LR_BUCKETS``); ``ranks_a`` are the A-tile
+    ranks the main path's first column gives ``batched_gemm``. Rounding pass on that operator:
     ``batched_qr`` of (2016, 512, 128) factor panels, ``small_svd`` of
     (2016, 128, 128) cores. Right-looking path (tile 128): ``batched_qr``
     and ``small_svd`` of (T <= 2016, 128, 128) densified tiles. Inputs are
@@ -208,20 +215,25 @@ def kernel_cases(torch, ranks_a, device="cuda"):
                     4.0 * T * b * w * s, None)
         return make
 
-    def lrs(T, k, b, r, s):
+    def lrs(T, k, b, r, s, width=None):
+        # factors of row stride r read at ``width`` columns (all r if None)
+        w = r if width is None else width
+
         def make(dtype):
-            Ui = randn((T, k, b, r), dtype, 1 / math.sqrt(r * k))
+            Ui = randn((T, k, b, r), dtype, 1 / math.sqrt(w * k))
             Vi = randn((T, k, b, r), dtype, 1 / math.sqrt(b))
             W2 = randn((k, b, s), dtype)
             isz = Ui.element_size()
-            return (lambda: lr.lr_sample_cuda(Ui, Vi, W2),
-                    lambda: lr.lr_sample_plain(Ui, Vi, W2),
+            return (lambda: lr.lr_sample_cuda(Ui, Vi, W2, width=width),
+                    lambda: lr.lr_sample_plain(Ui, Vi, W2, width=width),
                     lambda: lr.lr_sample_plain(Ui[:, :-1].contiguous(),
                                                Vi[:, :-1].contiguous(),
-                                               W2[:-1].contiguous()),
-                    lambda: torch.einsum("tjbr,tjcr,jcs->tbs", Ui, Vi, W2),
-                    (2 * T * k * b * r + k * b * s + T * b * s) * isz,
-                    4.0 * T * k * b * r * s, None)
+                                               W2[:-1].contiguous(),
+                                               width=width),
+                    lambda: torch.einsum("tjbr,tjcr,jcs->tbs", Ui[..., :w],
+                                         Vi[..., :w], W2),
+                    (2 * T * k * b * w + k * b * s + T * b * s) * isz,
+                    4.0 * T * k * b * w * s, None)
         return make
 
     def mgs(T, b, r, shift=0.0, dead=False):
@@ -283,12 +295,18 @@ def kernel_cases(torch, ranks_a, device="cuda"):
          chain(1891, 500, 128, 128, width=100)),
         ("tile_chain", "FMA past the tensor cores T=3 b=100 ldr=160 width=129 s=70",
          False, chain(3, 100, 160, 70, width=129)),
-        ("lr_sample", "T=63 J=30 b=512 r=128 s=16", True,
-         lrs(63, 30, 512, 128, 16)),
-        ("lr_sample", "T=32 J=46 b=512 r=128 s=16", False,
-         lrs(32, 46, 512, 128, 16)),
+        *[("lr_sample", f"T={Tb} J={Jb} b=512 r=128 s=16", Tb == 63,
+           lrs(Tb, Jb, 512, 128, 16)) for Tb, Jb in LR_BUCKETS],
         ("lr_sample", "ragged T=5 J=2 b=96 r=24 s=20", False,
          lrs(5, 2, 96, 24, 20)),
+        ("lr_sample", "two 16-column chunks T=3 J=5 b=100 ldr=128 width=37 "
+         "s=20", False, lrs(3, 5, 100, 128, 20, width=37)),
+        ("lr_sample", "one j T=63 J=1 b=512 r=128 s=16", False,
+         lrs(63, 1, 512, 128, 16)),
+        ("lr_sample", "8-byte copies T=5 J=3 b=100 ldr=127 s=16", False,
+         lrs(5, 3, 100, 127, 16)),
+        ("lr_sample", "rows past 512 T=4 J=3 b=1000 r=128 s=16", False,
+         lrs(4, 3, 1000, 128, 16)),
         ("batched_qr", "op.round T=2016 b=512 r=128", True,
          mgs(2016, 512, 128)),
         ("batched_qr", "right T=2016 b=128 r=128 (+3I)", False,
@@ -319,9 +337,19 @@ def gate(got, want, tol: float) -> tuple[float, float]:
     return worst
 
 
+def bitwise_equal(a, b) -> bool:
+    """Whether two kernel results (a tensor or a tuple of them) are equal
+    bit for bit."""
+    import torch
+    if not isinstance(a, (tuple, list)):
+        a, b = (a,), (b,)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def check_kernels(ranks_a, only=None) -> dict:
     """Every case of ``kernel_cases`` (those of the kernels named in
-    ``only``, if given): gate, planted fault and timings."""
+    ``only``, if given): gate, planted fault, two calls bitwise equal, and
+    timings."""
     import torch
     all_dtypes = (torch.float64, torch.float32, torch.bfloat16)
     results = {}
@@ -335,13 +363,15 @@ def check_kernels(ranks_a, only=None) -> dict:
             kernel, plain, fault, library, nbytes, flops, post = make(dtype)
             post = post or (lambda out: out)
             want = post(plain())
-            err, atol = gate(post(kernel()), want, tol)
+            got = kernel()
+            err, atol = gate(post(got), want, tol)
             fault_err, fault_atol = gate(post(fault()), want, tol)
             ok = err <= atol
+            same = bitwise_equal(got, kernel())
             rec = {"kernel": name, "shape": label, "dtype": dn,
                    "max_abs_err": err, "atol": atol, "ok": ok,
                    "planted_fault_err": fault_err,
-                   "planted_fault_atol": fault_atol}
+                   "planted_fault_atol": fault_atol, "deterministic": same}
             if dtype == torch.float64 or headline:
                 # the plain SVD is ~3000 small launches and cuSOLVER's SVD
                 # loops over the batch: time the costly calls once, after
@@ -366,8 +396,11 @@ def check_kernels(ranks_a, only=None) -> dict:
                 raise AssertionError(f"{name} {label} {dn}: the gate let a "
                                      f"planted fault through (err "
                                      f"{fault_err:.3e} <= {fault_atol:.3e})")
+            if not same:
+                raise AssertionError(f"{name} {label} {dn}: two kernel calls "
+                                     f"on the same inputs differ")
             results[(name, label, dn)] = dict(rec, headline=headline)
-            del want, kernel, plain, fault, library
+            del want, got, kernel, plain, fault, library
         torch.cuda.empty_cache()
     return results
 
@@ -436,7 +469,12 @@ def timed(fn, profile: str | None, name: str):
     busy_us = sum(_dev_us(e) for e in evs)
     log(f"profile {name}: device busy {busy_us / 1e6:.3f} s of {sec:.3f} s "
         f"wall (idle share {1 - busy_us / 1e6 / sec:.3f}); table in {path}")
-    for e in sorted(evs, key=lambda e: -_dev_us(e))[:12]:
+    top = sorted(evs, key=lambda e: -_dev_us(e))
+    # the twelve largest, then every other kernel of the port (templates
+    # are named with their return type, plain functions without)
+    for e in top[:12] + [e for e in top[12:] if e.key.removeprefix(
+            "void ").removeprefix("(anonymous namespace)::").startswith(
+            ("bgemm", "tile_chain", "lr_sample", "mgs_qr", "jacobi_svd"))]:
         log(f"  {_dev_us(e) / 1e3:10.1f} ms {e.count:7d}x  {e.key[:90]}")
     return out, sec
 
@@ -468,7 +506,8 @@ def svd_drivers(K, tile: int) -> None:
 def main_path(n: int, profile: str | None) -> dict:
     import torch
     from repro_torch import CholOptions, TLROperator, covariance_problem
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import lr_sample as lr
 
     tile, r_max, eps = TILE, R_MAX, EPS
 
@@ -497,7 +536,17 @@ def main_path(n: int, profile: str | None) -> dict:
     S, phases["sample_2"] = sync_time(lambda: fact.sample(2, generator=g))
     Ax, phases["matvec"] = sync_time(lambda: op @ x)
     launches = ops.launch_counts()
+    lr_shapes = sorted(lr.SHAPES.items(), reverse=True)
     log(f"launches on the main path: {json.dumps(launches)}")
+    log("lr_sample launches per (T, J) on the main path: "
+        + ", ".join(f"({t}, {j}) {c}" for (t, j), c in lr_shapes))
+    # the source's j split at those shapes: groups of j per row tile (the
+    # partials' workspace holds groups x T x b x s words when groups > 1)
+    groups = {(t, j): max(1, build.query("lr_sample", "workspace", K.dtype,
+                                         t, j, tile, r_max, 16)
+                          // (t * tile * 16)) for (t, j), _ in lr_shapes}
+    log("lr_sample j groups (blocks) per (T, J): " + ", ".join(
+        f"({t}, {j}) {gr} ({t * gr})" for (t, j), gr in groups.items()))
 
     ra, rl = op.A.ranks.float(), fact.L.ranks.float()
     log(f"phase seconds: {json.dumps({k: round(v, 4) for k, v in phases.items()})}")

@@ -37,7 +37,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "batched_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tile_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "lr_sample": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "lr_sample": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "batched_qr": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "small_svd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -48,12 +48,16 @@ DTYPES = {name: tuple(SUFFIX) for name in SOURCES}
 DTYPES.update(batched_qr=(torch.float64, torch.float32),
               small_svd=(torch.float64, torch.float32))
 # Shape queries that kernels also export, ``repro_<name>_<query>_<suffix>(dim,
-# dim)``, with their return types: "scratch", the words of device scratch a
-# tile needs (0 when it works in shared memory); "config", the kernel
-# configuration the source chooses for the shapes (-1: none fits).
-QUERIES = {"batched_qr": ("scratch", ctypes.c_longlong),
-           "small_svd": ("scratch", ctypes.c_longlong),
-           "tile_chain": ("config", ctypes.c_int)}
+# ...)``, with their return types and numbers of int arguments: "scratch",
+# the words of device scratch a tile needs (0 when it works in shared
+# memory); "config", the kernel configuration the source chooses for the
+# shapes (-1: none fits); "workspace", the words of device workspace a call
+# needs (lr_sample's partial sums over groups of j).
+QUERIES = {"batched_qr": {"scratch": (ctypes.c_longlong, 2)},
+           "small_svd": {"scratch": (ctypes.c_longlong, 2)},
+           "tile_chain": {"config": (ctypes.c_int, 2)},
+           "lr_sample": {"config": (ctypes.c_int, 2),
+                         "workspace": (ctypes.c_longlong, 5)}}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_INFO: dict = {}
@@ -129,10 +133,9 @@ def library(name: str) -> ctypes.CDLL:
             fn = getattr(lib, f"repro_{name}_{SUFFIX[dtype]}")
             fn.argtypes = _SIGNATURES[name]
             fn.restype = ctypes.c_int
-            if name in QUERIES:
-                query, restype = QUERIES[name]
+            for query, (restype, nargs) in QUERIES.get(name, {}).items():
                 fn = getattr(lib, f"repro_{name}_{query}_{SUFFIX[dtype]}")
-                fn.argtypes = [_I, _I]
+                fn.argtypes = [_I] * nargs
                 fn.restype = restype
         _LIBS[name] = lib
     return lib
@@ -146,12 +149,12 @@ def entry(name: str, dtype: torch.dtype):
     return getattr(library(name), f"repro_{name}_{SUFFIX[dtype]}")
 
 
-def query(name: str, query: str, dtype: torch.dtype, d0: int, d1: int) -> int:
+def query(name: str, query: str, dtype: torch.dtype, *dims: int) -> int:
     """The answer of kernel ``name``'s source to shape query ``query`` (see
-    ``QUERIES``) at (d0, d1)."""
+    ``QUERIES``) at ``dims``."""
     entry(name, dtype)  # checks the dtype, builds and loads the library
     return int(getattr(library(name),
-                       f"repro_{name}_{query}_{SUFFIX[dtype]}")(d0, d1))
+                       f"repro_{name}_{query}_{SUFFIX[dtype]}")(*dims))
 
 
 def check(name: str, err: int) -> None:

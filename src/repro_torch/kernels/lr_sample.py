@@ -3,11 +3,15 @@
 
 Port of the Pallas TPU kernel ``lr_sample_pallas`` (``_lr_sample_kernel``,
 src/repro/kernels/lr_sample.py:36-93). The CUDA kernel is
-``csrc/lr_sample.cu``: the TPU's sequential j grid axis becomes a loop
-inside each block with the accumulator in registers, and the b rows are
-split across blocks to fill the card (the source notes what that
-recomputes, what bounds the kernel on the H100 and what the design does
-about it).
+``csrc/lr_sample.cu``. In f64 with r <= 128 (every call of the main path)
+it runs on the FP64 tensor cores: a block takes one row tile t and a group
+of j, forms each ``V[t, j]^T W2[j]`` once on chip and keeps the group's sum
+in registers; the source splits j into groups so that the grid fills the
+card, and a second pass adds the groups' partials in a fixed order. Other
+dtypes and widths run plain FMA loops with the j axis a loop inside each
+block. The source chooses by shape, and :func:`_config` asks it before the
+launch; what bounds the kernel on the H100 and what the design does about
+it is noted in the source.
 
 :func:`lr_sample` launches the kernel for CUDA tensors and runs
 :func:`lr_sample_plain` for CPU tensors; there is no fallback between the
@@ -22,8 +26,23 @@ import torch
 from . import build
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.reset_launch_counts)
+# launches per (T, J) shape since the last reset: the column buckets of the
+# left-looking factorization
+SHAPES: dict[tuple[int, int], int] = {}
 
-_SMEM_LIMIT = 160 * 1024
+# Kernel configurations, as ``config`` in csrc/lr_sample.cu numbers them.
+FMA, DMMA = 0, 1
+
+
+def _config(dtype: torch.dtype, r: int, s: int) -> int:
+    """The kernel configuration that csrc/lr_sample.cu chooses for factor
+    width ``r`` and ``s`` columns: the f64 tensor-core kernel for r <= 128,
+    else the FMA kernel while its shared-memory intermediate fits."""
+    cfg = build.query("lr_sample", "config", dtype, r, s)
+    if cfg < 0:
+        raise ValueError(f"lr_sample: width {r} too large for the "
+                         f"shared-memory intermediate")
+    return cfg
 
 
 def lr_sample_plain(Ui: torch.Tensor, Vi: torch.Tensor, W2: torch.Tensor,
@@ -60,18 +79,20 @@ def lr_sample_cuda(Ui: torch.Tensor, Vi: torch.Tensor, W2: torch.Tensor,
         raise ValueError("lr_sample: operands must be contiguous")
     if k == 0:
         return torch.zeros((T, b, s), dtype=Ui.dtype, device=Ui.device)
-    acc_bytes = 8 if Ui.dtype == torch.float64 else 4
-    if r * 16 * acc_bytes > _SMEM_LIMIT:
-        raise ValueError(f"lr_sample: width {r} too large for the "
-                         f"shared-memory intermediate")
     Y = torch.empty((T, b, s), dtype=Ui.dtype, device=Ui.device)
     if Y.numel() == 0:
         return Y
+    cfg = _config(Ui.dtype, r, s)
+    words = build.query("lr_sample", "workspace", Ui.dtype, T, k, b, r, s)
+    work = (torch.empty(words, dtype=Ui.dtype, device=Ui.device)
+            if words else None)
     fn = build.entry("lr_sample", Ui.dtype)
     err = fn(Ui.data_ptr(), Vi.data_ptr(), W2.data_ptr(), Y.data_ptr(),
-             T, k, b, r, ldr, s, build.stream_handle(Ui))
+             None if work is None else work.data_ptr(),
+             T, k, b, r, ldr, s, cfg, build.stream_handle(Ui))
     build.check("lr_sample", err)
     LAUNCHES += 1
+    SHAPES[(T, k)] = SHAPES.get((T, k), 0) + 1
     return Y
 
 

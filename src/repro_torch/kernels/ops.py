@@ -48,3 +48,4 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.LAUNCHES = 0
+    _lr.SHAPES.clear()

@@ -8,8 +8,9 @@ so it runs on a machine without JAX:
 Tolerances as in tests/test_kernels.py (f64 1e-12, f32 1e-5, bf16 5e-2,
 bf16 accumulating in f32), relative to the largest |plain output|; each
 check must also reject a planted fault (one rank or one j term dropped).
-The f64 paths of ``tile_chain`` with s > 16 have their own ragged cases:
-the tensor-core kernel (r <= 128) and the FMA kernel past it.
+The f64 paths of ``tile_chain`` with s > 16 and of ``lr_sample`` have
+their own ragged cases: the tensor-core kernels (r <= 128) and the FMA
+kernels past them.
 The rounding kernels run in f64 and f32: ``batched_qr`` is held to the
 same gate on Q and R, ``small_svd`` to ten times it on the sorted singular
 values and on the reconstruction ``U diag(s) V^T`` (its U and V columns of
@@ -157,6 +158,114 @@ def test_cuda_tile_chain_f64_eight_byte_copies(cuda_device):
     got = ops.tile_chain(U, V, X)
     want = ttc.tile_chain_plain(U, V, X)
     fault = ttc.tile_chain_plain(U, V, X, width=ldr - 1)
+    atol = 1e-12 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= atol
+    assert float((fault - want).abs().max()) > atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [16, 17, 20])
+@pytest.mark.parametrize("T,J", [(1, 1), (1, 62), (3, 5), (63, 30)])
+def test_cuda_lr_sample_f64_tensor_cores(cuda_device, T, J, s):
+    """On the card: the f64 tensor-core kernel of lr_sample against its
+    plain version at b = 100 (not a multiple of its slices), 37 of 128
+    factor columns by ``width=``, s = 16, 17 and 20 (one or two 16-column
+    chunks), and J from 1 to 62 (one group of j, or partials added over
+    several); the gate rejects the last j term dropped."""
+    b, ldr, width = 100, 128, 37
+    assert tlr._config(torch.float64, width, s) == tlr.DMMA
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device,
+                           dtype=torch.float64)
+
+    Ui, Vi, W2 = rnd(T, J, b, ldr), rnd(T, J, b, ldr), rnd(J, b, s)
+    ops.reset_launch_counts()
+    got = ops.lr_sample(Ui, Vi, W2, width=width)
+    want = tlr.lr_sample_plain(Ui, Vi, W2, width=width)
+    fault = tlr.lr_sample_plain(Ui[:, :-1].contiguous(),
+                                Vi[:, :-1].contiguous(),
+                                W2[:-1].contiguous(), width=width)
+    atol = 1e-12 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= atol
+    assert float((fault - want).abs().max()) > atol
+    assert ops.launch_counts()["lr_sample"] == 1
+    assert tlr.SHAPES == {(T, J): 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,r,cfg", [
+    (torch.float64, 128, tlr.DMMA),     # the main path
+    (torch.float64, 37, tlr.DMMA),
+    (torch.float64, 129, tlr.FMA),      # r past the tensor-core kernel
+    (torch.float32, 128, tlr.FMA),
+    (torch.bfloat16, 128, tlr.FMA),
+])
+def test_cuda_lr_sample_config_by_shape(cuda_device, dtype, r, cfg):
+    """lr_sample's kernel configuration comes from the shapes alone, as
+    csrc/lr_sample.cu decides before any launch: the f64 tensor-core
+    kernel for r <= 128, the FMA kernel otherwise."""
+    assert tlr._config(dtype, r, 16) == cfg
+
+
+@pytest.mark.gpu
+def test_cuda_lr_sample_rejects_a_width_too_large(cuda_device):
+    """A width whose intermediate fits no configuration raises before any
+    launch, and a launch with another configuration than the source's is
+    refused."""
+    with pytest.raises(ValueError, match="too large"):
+        tlr._config(torch.float64, 1281, 16)
+    x = torch.zeros((1, 1, 8, 32), device=cuda_device, dtype=torch.float64)
+    fn = build.entry("lr_sample", torch.float64)
+    err = fn(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), None,
+             1, 1, 8, 32, 32, 32, tlr.FMA, build.stream_handle(x))
+    assert err != 0
+
+
+@pytest.mark.gpu
+def test_cuda_lr_sample_bitwise_deterministic(cuda_device):
+    """Two calls on the same inputs give bitwise-equal Y, at a column bucket
+    of the main path whose j is split into groups whose partials are added
+    in a second pass (T = 8, J = 58, b = 512, r = 128, s = 16)."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    T, J, b, r, s = 8, 58, 512, 128, 16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device,
+                           dtype=torch.float64)
+
+    Ui, Vi, W2 = rnd(T, J, b, r), rnd(T, J, b, r), rnd(J, b, s)
+    assert build.query("lr_sample", "workspace", torch.float64,
+                       T, J, b, r, s) > 0
+    first = ops.lr_sample(Ui, Vi, W2)
+    for _ in range(3):
+        assert torch.equal(ops.lr_sample(Ui, Vi, W2), first)
+    want = tlr.lr_sample_plain(Ui, Vi, W2)
+    assert float((first - want).abs().max()) <= \
+        1e-12 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ldr,w2_offset", [(127, 0), (128, 1)])
+def test_cuda_lr_sample_f64_eight_byte_copies(cuda_device, ldr, w2_offset):
+    """The tensor-core path with 8-byte copies: U and V of odd row stride
+    (127), or W2 one element past a 16-byte boundary."""
+    T, J, b, s = 3, 5, 100, 16
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+
+    def rnd(n):
+        return torch.randn(n, generator=g, device=cuda_device,
+                           dtype=torch.float64)
+
+    Ui = rnd(T * J * b * ldr).view(T, J, b, ldr)
+    Vi = rnd(T * J * b * ldr).view(T, J, b, ldr)
+    W2 = rnd(J * b * s + w2_offset)[w2_offset:].view(J, b, s)
+    assert W2.is_contiguous() and W2.data_ptr() % 16 == 8 * w2_offset
+    got = ops.lr_sample(Ui, Vi, W2)
+    want = tlr.lr_sample_plain(Ui, Vi, W2)
+    fault = tlr.lr_sample_plain(Ui[:, :-1].contiguous(),
+                                Vi[:, :-1].contiguous(), W2[:-1].contiguous())
     atol = 1e-12 * float(want.abs().max())
     assert float((got - want).abs().max()) <= atol
     assert float((fault - want).abs().max()) > atol

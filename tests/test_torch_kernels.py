@@ -9,16 +9,22 @@ only on a card: tests/test_torch_gpu.py compares them with the plain
 versions there.
 """
 
+import importlib.util
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import buckets as jax_buckets
 from repro.kernels import ref
 from repro.kernels.batched_gemm import batched_gemm_pallas
 from repro.kernels.lr_sample import lr_sample_pallas
 from repro.kernels.tlr_matvec import tile_chain_pallas
+from repro_torch.core.buckets import _bucket_ladder, _column_buckets
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import batched_gemm as tbg
@@ -163,6 +169,52 @@ def test_tile_chain_ragged_f64_matches_jax(ldr, width, s):
     want = tile_chain_pallas(jnp.asarray(U), jnp.asarray(V), jnp.asarray(X),
                              interpret=True, width=width)
     _close(got, want, 1e-12, 1e-12 * np.sqrt(100))
+
+
+@pytest.mark.parametrize("s", [16, 17, 20])
+@pytest.mark.parametrize("T,J", [(1, 1), (3, 5)])
+def test_lr_sample_ragged_f64_matches_jax(T, J, s):
+    """The f64 shapes that tests/test_torch_gpu.py holds the card's
+    tensor-core kernel to (b = 100, 37 of 128 factor columns by ``width=``,
+    one or two 16-column chunks), against the Pallas kernel in interpret
+    mode."""
+    rng = np.random.default_rng(8)
+    Ui, Vi, W2 = (rng.standard_normal(shape) for shape in
+                  ((T, J, 100, 128), (T, J, 100, 128), (J, 100, s)))
+    got = ops.lr_sample(*(torch.from_numpy(a) for a in (Ui, Vi, W2)),
+                        width=37)
+    want = lr_sample_pallas(jnp.asarray(Ui), jnp.asarray(Vi), jnp.asarray(W2),
+                            interpret=True, width=37)
+    _close(got, want, 1e-12, 1e-12 * np.sqrt(100 * J))
+
+
+def test_lr_sample_smoke_cases_follow_the_column_buckets():
+    """chip_smoke.py times lr_sample at the (T, J) shapes the left-looking
+    factorization gives it at N = 32768, tile 512: the column buckets
+    ``_column_buckets(64, k, _bucket_ladder(63))``, k = 0 .. 62, at the
+    largest, the smallest and the buckets between."""
+    buckets = {_column_buckets(64, k, _bucket_ladder(63)) for k in range(63)}
+    assert buckets == {jax_buckets._column_buckets(
+        64, k, jax_buckets._bucket_ladder(63)) for k in range(63)}
+    assert buckets == {(63, 30), (32, 46), (16, 54), (8, 58), (4, 60),
+                       (2, 61), (1, 62)}
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert set(smoke.LR_BUCKETS) == buckets
+    cases = smoke.kernel_cases(torch, torch.ones(63, dtype=torch.int32),
+                               device="cpu")
+    shapes = set()
+    for name, label, headline, _ in cases:
+        m = re.fullmatch(r"T=(\d+) J=(\d+) b=512 r=128 s=16", label)
+        if name == "lr_sample" and m:
+            shapes.add((int(m[1]), int(m[2])))
+            assert headline == ((int(m[1]), int(m[2])) == (63, 30))
+    assert shapes <= buckets
+    by_t = sorted(buckets)
+    assert by_t[0] in shapes and by_t[-1] in shapes
+    assert any(by_t[0] < sh < by_t[-1] for sh in shapes)
 
 
 def test_cuda_requests_raise_without_a_card(monkeypatch):

@@ -3,8 +3,8 @@
 
 Runs ``chip_smoke.py``'s kernel cases for the kernels named on the command
 line: each kernel against its plain version at the paths' shapes, the
-planted-fault gate, and the kernel / plain / library / bound times, as the
-smoke prints them, without the smoke's end-to-end paths (seconds instead
+planted-fault gate, two calls bitwise equal, and the kernel / plain /
+library / bound times, as the smoke prints them, without the smoke's end-to-end paths (seconds instead
 of minutes). ``batched_gemm``'s cases take the main path's A-tile ranks in
 the smoke; here they are drawn from a seed.
 
