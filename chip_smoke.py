@@ -16,14 +16,17 @@ before it and read just after:
    rounded matvec within 1e-5 of ``K x``;
 3. the right-looking driver: the same covariance at N = 8192, tile 128,
    ``cholesky`` and ``ldlt`` with ``algo="right"``, gated on the same
-   residual and finite solves.
+   residual and finite solves; it logs ``small_svd``'s launches per
+   (T, m, n) and, timed apart, launches x kernel ms against the bound per
+   shape (the round path logs its launches per shape too).
 
 Then it holds each kernel against its plain PyTorch version on the card
 (f64, f32 and bf16; f64 and f32 for the QR and SVD) at the paths' shapes
-(``lr_sample`` at each of the main path's column buckets), checks that each
-gate rejects a planted fault and that two kernel calls agree bit for bit,
-and checks a small end-to-end run on the card against the same run on the
-CPU.
+(``lr_sample`` at each of the main path's column buckets, ``small_svd`` at
+the right driver's panel shapes and on a spectrum whose unsorted factors
+must match the plain version's rotations), checks that each gate rejects a
+planted fault and that two kernel calls agree bit for bit, and checks a
+small end-to-end run on the card against the same run on the CPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``--n`` cuts the main path's size for a quick look;
@@ -66,6 +69,20 @@ N_RIGHT, TILE_RIGHT = 8192, 128
 # tests/test_kernels.py gives the SVD 100 times the kernel tolerance.
 TOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 5e-2}
 TOL_SCALE = {"small_svd": 10.0}
+# small_svd's "same rotations" case: unsorted s, U and V elementwise against
+# the plain version, whose rotation sequence the kernel keeps, after each
+# column pair of U and V is given the sign that makes V's largest entry
+# positive: a rotation of two converged columns with alpha < beta swaps
+# them, taking the sign of a rounding-level gamma (the plain version on the
+# CPU and on the card differ so in 2 of 512 f64 columns of one input, and
+# in about 30 % of f32 columns). On the CPU, reordering M's rows (which changes
+# only the dot products' summation order) moves the matched factors by
+# 4e-14 in f64 and 2.4e-5 in f32.
+SAME_ROTATIONS_ATOL = {"float64": 1e-10, "float32": 2e-4}
+SAME_ROTATIONS = "same rotations T=4 m=128 n=128"
+# Cases held to an absolute tolerance per dtype name, in place of the
+# gate's relative one: (kernel, shape label) -> {dtype name: atol}.
+CASE_ATOL = {("small_svd", SAME_ROTATIONS): SAME_ROTATIONS_ATOL}
 KERNELS = ("batched_gemm", "tile_chain", "lr_sample", "batched_qr",
            "small_svd")
 MAIN_KERNELS = ("batched_gemm", "tile_chain", "lr_sample")
@@ -142,6 +159,12 @@ def build_kernels() -> None:
         log(f"  ptxas {name}: {len(regs)} kernels, registers "
             f"{min(regs, default=0)}-{max(regs, default=0)}, "
             f"spill stores max {max(spills, default=0)} B")
+        if name == "small_svd":
+            # each kernel: its entry, then registers and spills
+            for line in text.splitlines():
+                if "Compiling entry" in line or "spill stores" in line \
+                        or "Used" in line:
+                    log(f"    {line.strip()}")
 
 
 # -- phase 3: kernels against their plain versions ------------------------------------
@@ -149,21 +172,26 @@ def build_kernels() -> None:
 
 def kernel_cases(torch, ranks_a, device="cuda"):
     """(name, shape label, headline, make(dtype) -> (kernel, plain, fault,
-    library, bytes_needed, flops_needed, post)) at the paths' shapes.
+    library, bytes_needed, flops_needed, post)) at the paths' shapes
+    (``CASE_ATOL`` gives some cases an absolute tolerance).
 
     Main path: N=32768, tile 512, r_max 128, bs 16 (``lr_sample`` at each
     (T, J) column bucket of ``LR_BUCKETS``); ``ranks_a`` are the A-tile
     ranks the main path's first column gives ``batched_gemm``. Rounding pass on that operator:
     ``batched_qr`` of (2016, 512, 128) factor panels, ``small_svd`` of
     (2016, 128, 128) cores. Right-looking path (tile 128): ``batched_qr``
-    and ``small_svd`` of (T <= 2016, 128, 128) densified tiles. Inputs are
+    and ``small_svd`` of (T <= 2016, 128, 128) densified tiles, (63, 128,
+    128) and (1, 128, 128) at a panel rounding. Inputs are
     scaled so that outputs are O(1); the square QR inputs are shifted by
     3 I so that Q is well conditioned (a random square panel's Q moves by
     cond x rounding). ``fault`` is the plain version with one rank
     (``batched_gemm``), one factor column (``tile_chain``: ``width`` one
     less), the last j term (``lr_sample``), the
     last column (``batched_qr``) or seven of the eight sweeps
-    (``small_svd``) dropped: a result the gate must reject. ``post`` maps a
+    (``small_svd``) dropped: a result the gate must reject. The
+    "same rotations" case holds the unsorted s, U and V of a well-separated
+    spectrum elementwise, column signs matched as ``SAME_ROTATIONS_ATOL``
+    says. ``post`` maps a
     raw result to the outputs that are gated (None: the result itself);
     timing runs the raw calls. ``headline`` marks the shape that takes most
     of the kernel's time on its path; its numbers go into the kernels
@@ -275,6 +303,28 @@ def kernel_cases(torch, ranks_a, device="cuda"):
                     8.0 * T * n * (n - 1) / 2 * (12 * m + 6 * n), post)
         return make
 
+    def same_rotations(T, n):
+        # M = Qa diag(linspace(3, 0.1)) Qb: singular values 0.023 apart
+        def make(dtype):
+            Qa = torch.linalg.qr(randn((T, n, n), torch.float64)).Q
+            Qb = torch.linalg.qr(randn((T, n, n), torch.float64)).Q
+            sig = torch.linspace(3.0, 0.1, n, device=device,
+                                 dtype=torch.float64)
+            M = ((Qa * sig) @ Qb).to(dtype)
+            isz = M.element_size()
+
+            def post(out):
+                U, s, V = out
+                sign = svd_column_signs(V)
+                return s, U * sign, V * sign
+            return (lambda: svd.small_svd_cuda(M),
+                    lambda: svd.small_svd_plain(M),
+                    lambda: svd.small_svd_plain(M, sweeps=1),
+                    lambda: torch.linalg.svd(M, full_matrices=False),
+                    (2 * T * n * n + T * n + T * n * n) * isz,
+                    8.0 * T * n * (n - 1) / 2 * (18 * n), post)
+        return make
+
     T = ranks_a.shape[0]
     ragged = torch.randint(1, 25, (5,), generator=g, device=device,
                            dtype=torch.int32)
@@ -315,26 +365,39 @@ def kernel_cases(torch, ranks_a, device="cuda"):
          mgs(5, 96, 24, dead=True)),
         ("small_svd", "core T=2016 m=128 n=128", True,
          jacobi(2016, 128, 128)),
+        ("small_svd", "panel T=63 m=128 n=128", False, jacobi(63, 128, 128)),
+        ("small_svd", "one tile T=1 m=128 n=128", False,
+         jacobi(1, 128, 128)),
+        ("small_svd", SAME_ROTATIONS, False, same_rotations(4, 128)),
         ("small_svd", "ragged T=3 m=20 n=13", False, jacobi(3, 20, 13)),
         ("small_svd", "scratch T=2 m=300 n=200", False, jacobi(2, 300, 200)),
     ]
 
 
-def gate(got, want, tol: float) -> tuple[float, float]:
+def gate(got, want, tol: float, atol: float | None = None
+         ) -> tuple[float, float]:
     """(max abs error, allowed) of the output closest to failing: ``got``
     passes when, for every output, its largest deviation from ``want`` is
-    at most ``tol`` times the largest |want| of that output."""
+    at most ``tol`` times the largest |want| of that output (at most
+    ``atol``, if given)."""
     if not isinstance(want, (tuple, list)):
         got, want = (got,), (want,)
     worst, worst_ratio = (0.0, 0.0), -1.0
     for x, w in zip(got, want):
         w = w.double()
         err = float((x.double() - w).abs().max())
-        allowed = tol * float(w.abs().max())
+        allowed = atol if atol is not None else tol * float(w.abs().max())
         ratio = err / allowed if allowed > 0 else (math.inf if err else 0.0)
         if ratio > worst_ratio:
             worst, worst_ratio = (err, allowed), ratio
     return worst
+
+
+def svd_column_signs(V):
+    """(T, 1, n): the sign of each column's largest |entry| of V."""
+    import torch
+    top = V.abs().argmax(dim=1, keepdim=True)
+    return torch.sign(torch.take_along_dim(V, top, dim=1))
 
 
 def bitwise_equal(a, b) -> bool:
@@ -360,18 +423,24 @@ def check_kernels(ranks_a, only=None) -> dict:
                       else all_dtypes):
             dn = str(dtype).removeprefix("torch.")
             tol = TOL[dn] * TOL_SCALE.get(name, 1.0)
+            abs_tol = CASE_ATOL.get((name, label), {}).get(dn)
             kernel, plain, fault, library, nbytes, flops, post = make(dtype)
             post = post or (lambda out: out)
-            want = post(plain())
+            raw = plain()
+            want = post(raw)
             got = kernel()
-            err, atol = gate(post(got), want, tol)
-            fault_err, fault_atol = gate(post(fault()), want, tol)
+            err, atol = gate(post(got), want, tol, abs_tol)
+            fault_err, fault_atol = gate(post(fault()), want, tol, abs_tol)
             ok = err <= atol
             same = bitwise_equal(got, kernel())
             rec = {"kernel": name, "shape": label, "dtype": dn,
                    "max_abs_err": err, "atol": atol, "ok": ok,
                    "planted_fault_err": fault_err,
                    "planted_fault_atol": fault_atol, "deterministic": same}
+            if label == SAME_ROTATIONS:
+                # columns whose sign the kernel and the plain version differ in
+                rec["sign_flips"] = int((svd_column_signs(got[2]) !=
+                                         svd_column_signs(raw[2])).sum())
             if dtype == torch.float64 or headline:
                 # the plain SVD is ~3000 small launches and cuSOLVER's SVD
                 # loops over the batch: time the costly calls once, after
@@ -613,10 +682,13 @@ def rounding_phase(op, K, g, eps: float = 1e-6) -> dict:
     of the dense ``K x``."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels import small_svd as svd
 
     ops.reset_launch_counts()
     rop, sec = sync_time(lambda: op.round(eps))
     launches = ops.launch_counts()
+    log(f"small_svd launches per (T, m, n) on the round path: "
+        f"{svd_shapes(svd.SHAPES)}")
     r0, r1 = op.A.ranks, rop.A.ranks
     x = torch.randn((K.shape[0],), generator=g, device="cuda", dtype=K.dtype)
     y = K @ x
@@ -637,15 +709,50 @@ def rounding_phase(op, K, g, eps: float = 1e-6) -> dict:
 # -- phase 7: the right-looking driver ----------------------------------------------------
 
 
+def svd_shapes(shapes: dict) -> str:
+    return ", ".join(f"({t}, {m}, {n}) {c}" for (t, m, n), c in
+                     sorted(shapes.items(), reverse=True))
+
+
+def svd_shape_times(shapes: dict, dtype_name: str = "float64") -> float:
+    """Times ``small_svd`` at each (T, m, n) a path launched it with (random
+    cores, CUDA events) and logs launches x kernel ms against launches x
+    bound ms per shape; returns the summed kernel seconds, the path's
+    ``small_svd`` time as these shapes give it."""
+    import torch
+    from repro_torch.kernels import small_svd as svd
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    total_ms = total_bound = 0.0
+    for (T, m, n), count in sorted(shapes.items(), reverse=True):
+        M = (torch.randn((T, m, n), generator=g, device="cuda",
+                         dtype=torch.float64) / math.sqrt(m)).to(dtype)
+        ms = event_ms(lambda: svd.small_svd_cuda(M), 3 if T > 500 else 10)
+        flops = 8.0 * T * n * (n - 1) / 2 * (12 * m + 6 * n)
+        nbytes = (2 * T * m * n + T * n + T * n * n) * M.element_size()
+        bound = 1e3 * max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype_name])
+        total_ms += count * ms
+        total_bound += count * bound
+        log(f"  small_svd ({T}, {m}, {n}) {dtype_name}: {count} launches x "
+            f"{ms:.4f} ms = {count * ms:.1f} ms (bound {bound:.4f} ms, x "
+            f"{count} = {count * bound:.1f} ms)")
+        del M
+    log(f"  small_svd all shapes: {total_ms:.1f} ms (bound "
+        f"{total_bound:.1f} ms)")
+    return total_ms / 1e3
+
+
 def right_phase(n: int, profile: str | None) -> dict:
     """The 2-D exponential covariance at N = ``n``, tile 128, compressed at
     1e-8 with r_max 128, factored by the right-looking driver (Cholesky,
     then LDL^T, flat batching). Gates per factorization: the QR, SVD and
     GEMM kernels ran, the randomized residual ``||K z - L D L^T z|| /
-    ||K z|| <= 100 eps`` holds and a solve is finite."""
+    ||K z|| <= 100 eps`` holds and a solve is finite. Logs ``small_svd``'s
+    launches per shape and, after both, its time per shape."""
     import torch
     from repro_torch import CholOptions, TLROperator, covariance_problem
     from repro_torch.kernels import ops
+    from repro_torch.kernels import small_svd as svd
 
     tile, eps = TILE_RIGHT, EPS
     torch.cuda.reset_peak_memory_stats()
@@ -668,6 +775,7 @@ def right_phase(n: int, profile: str | None) -> dict:
                           profile if kind == "cholesky" else None,
                           "right_cholesky")
         launches = ops.launch_counts()
+        shapes = dict(svd.SHAPES)
         LtZ = fact.tri_matvec(Z, trans=True)
         if fact.d is not None:
             LtZ = LtZ * fact.d.reshape(-1, 1)
@@ -690,11 +798,20 @@ def right_phase(n: int, profile: str | None) -> dict:
         assert bool(torch.isfinite(x).all()), f"right {kind}: solve not finite"
         out[f"right_{kind}"] = launches
         out[f"right_{kind}_seconds"] = sec
+        out[f"right_{kind}_svd_shapes"] = shapes
+        log(f"right {kind}: small_svd launches per (T, m, n): "
+            f"{svd_shapes(shapes)}")
         del fact, LtZ, x
     log(f"right phase max_memory_allocated: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del op, K, KZ, Z
     torch.cuda.empty_cache()
+    for kind in ("cholesky", "ldlt"):
+        log(f"right {kind}: small_svd per shape (f64, timed apart from the "
+            f"path):")
+        sec = svd_shape_times(out[f"right_{kind}_svd_shapes"])
+        log(f"right {kind}: small_svd {sec:.3f} s of the factorization's "
+            f"{out[f'right_{kind}_seconds']:.3f} s")
     return out
 
 

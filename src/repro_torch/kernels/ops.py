@@ -49,3 +49,4 @@ def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.LAUNCHES = 0
     _lr.SHAPES.clear()
+    _svd.SHAPES.clear()

@@ -15,7 +15,10 @@ The rounding kernels run in f64 and f32: ``batched_qr`` is held to the
 same gate on Q and R, ``small_svd`` to ten times it on the sorted singular
 values and on the reconstruction ``U diag(s) V^T`` (its U and V columns of
 nearly equal singular values rotate freely under rounding; see
-chip_smoke.py).
+chip_smoke.py). The persistent ``small_svd`` kernel (m <= 128) has its own
+cases: the plain version's rotations (unsorted factors elementwise), graded
+R factors, exact zero columns, T = 1 / 133 / 2016, bitwise repeats and the
+path by shape.
 """
 
 import pytest
@@ -319,3 +322,156 @@ def test_cuda_rounding_kernels_match_plain(cuda_device, dtype):
     assert ops.launch_counts() == {"batched_gemm": 0, "tile_chain": 0,
                                    "lr_sample": 0, "batched_qr": 2,
                                    "small_svd": 2}
+
+
+# -- small_svd: the persistent shared-memory kernel (m <= 128) ---------------
+
+SVD_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# Unsorted s, U and V against the plain version, elementwise after matching
+# column signs (the values of chip_smoke.SAME_ROTATIONS_ATOL: a swap of two
+# converged columns takes the sign of a rounding-level gamma).
+SAME_ROTATIONS_ATOL = {torch.float64: 1e-10, torch.float32: 2e-4}
+
+
+def _svd_close(M, got, want, tol):
+    """The smoke's gate: sorted s and U diag(s) V^T within 10 tol times
+    the largest |s| and |M|."""
+    (U, s, V), (Up, sp, Vp) = got, want
+
+    def rec(U, s, V):
+        return (U * s[:, None, :]) @ V.transpose(1, 2)
+
+    s_err = float((s.sort(dim=-1).values
+                   - sp.sort(dim=-1).values).abs().max())
+    r_err = float((rec(U, s, V) - rec(Up, sp, Vp)).abs().max())
+    return (s_err <= 10 * tol * float(sp.abs().max())
+            and r_err <= 10 * tol * float(M.abs().max()))
+
+
+def _check_svd(M, tol):
+    """Kernel against plain version; the planted fault (seven of the
+    eight sweeps dropped) must fail the same gate."""
+    got = tsvd.small_svd_cuda(M)
+    assert _svd_close(M, got, tsvd.small_svd_plain(M), tol)
+    assert not _svd_close(M, tsvd.small_svd_plain(M, sweeps=1),
+                          tsvd.small_svd_plain(M), tol)
+    return got
+
+
+def _rand_cores(T, n, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn((T, n, n), generator=g, device=device,
+                        dtype=torch.float64) / n ** 0.5).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_small_svd_same_rotations(cuda_device, dtype):
+    """The kernel runs the plain version's rotations: on a well-separated
+    spectrum (singular values 3 .. 0.1, 0.023 apart) the unsorted s, U and
+    V agree elementwise once each column pair has the sign that makes V's
+    largest entry positive."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    n = 128
+    Qa, Qb = (torch.linalg.qr(torch.randn((4, n, n), generator=g,
+                                          device=cuda_device,
+                                          dtype=torch.float64)).Q
+              for _ in range(2))
+    sig = torch.linspace(3.0, 0.1, n, device=cuda_device, dtype=torch.float64)
+    M = ((Qa * sig) @ Qb).to(dtype)
+
+    def canonical(out):
+        U, s, V = out
+        top = V.abs().argmax(dim=1, keepdim=True)
+        sign = torch.sign(torch.take_along_dim(V, top, dim=1))
+        return s, U * sign, V * sign
+
+    atol = SAME_ROTATIONS_ATOL[dtype]
+    want = canonical(tsvd.small_svd_plain(M))
+    got = canonical(tsvd.small_svd_cuda(M))
+    fault = canonical(tsvd.small_svd_plain(M, sweeps=1))
+    assert all(float((a - b).abs().max()) <= atol for a, b in zip(got, want))
+    assert float((fault[0] - want[0]).abs().max()) > atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_small_svd_graded_r(cuda_device, dtype):
+    """Graded upper-triangular input, as the right-looking driver gives
+    it: R of ``batched_qr`` of exponential-covariance tiles between two
+    clusters of 128 points (singular values falling to rounding level).
+    The gate holds, and the ranks at 1e-6 of the largest value agree."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    pa = torch.rand((8, 128, 2), generator=g, device=cuda_device,
+                    dtype=torch.float64) * 0.5
+    pb = pa.new_empty(pa.shape).uniform_(0.5, 1.0, generator=g)
+    K = torch.exp(-torch.cdist(pa, pb) / 0.1).to(dtype).contiguous()
+    _, R = tqr.batched_qr(K)
+    R = R.contiguous()
+    U, s, V = _check_svd(R, SVD_TOL[dtype])
+    _, sp, _ = tsvd.small_svd_plain(R)
+    ranks = (s > 1e-6 * s.amax(dim=1, keepdim=True)).sum(dim=1)
+    ranks_p = (sp > 1e-6 * sp.amax(dim=1, keepdim=True)).sum(dim=1)
+    assert torch.equal(ranks, ranks_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_small_svd_skip_rule(cuda_device, dtype):
+    """Exact zero columns: every rotation with one is skipped (|gamma| <=
+    tiny), so its singular value and U column are exactly 0 and its V
+    column stays the unit vector, as in the plain version."""
+    M = _rand_cores(3, 128, dtype, cuda_device, 7)
+    M[:, :, 5] = 0.0
+    M[:, :, 77] = 0.0
+    M[1, :, 0] = 0.0
+    U, s, V = _check_svd(M, SVD_TOL[dtype])
+    Up, sp, Vp = tsvd.small_svd_plain(M)
+    for t, j in ((0, 5), (1, 77), (2, 5), (1, 0)):
+        assert float(s[t, j]) == 0.0 and float(sp[t, j]) == 0.0
+        assert float(U[t, :, j].abs().max()) == 0.0
+        e = torch.zeros(128, dtype=dtype, device=cuda_device)
+        e[j] = 1.0
+        assert torch.equal(V[t, :, j], e) and torch.equal(Vp[t, :, j], e)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 133, 2016])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_small_svd_persistent_loop(cuda_device, T, dtype):
+    """One tile, one tile more than the card's SMs, and the headline's
+    2016 tiles; the rotation logs scale with the grid, not with T."""
+    M = _rand_cores(T, 128, dtype, cuda_device, 8)
+    _check_svd(M, SVD_TOL[dtype])
+    per_tile = 2 * 8 * 128 * 127 // 2  # (c, s) words of a tile's log
+    words = build.query("small_svd", "workspace", dtype, T, 128, 128, 8)
+    slots = build.query("small_svd", "workspace", dtype, 8064, 128, 128,
+                        8) // per_tile  # the grid: resident blocks x SMs
+    assert words == per_tile * min(T, slots)
+    assert slots < 2016
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_small_svd_repeatable(cuda_device, dtype):
+    """Two calls on the same cores are bitwise equal."""
+    M = _rand_cores(133, 128, dtype, cuda_device, 9)
+    a, b = tsvd.small_svd_cuda(M), tsvd.small_svd_cuda(M)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_cuda_small_svd_path_by_shape(cuda_device):
+    """The source's choice, as the workspace it asks for shows it: the
+    persistent kernel's rotation logs for m <= 128, none for the first
+    design with A in shared memory while m n words fit in 200 KB, else a
+    device scratch of m n words a tile."""
+    def words(dtype, m, n):
+        return build.query("small_svd", "workspace", dtype, 3, m, n, 8)
+    for dtype, m, n in ((torch.float64, 128, 128), (torch.float32, 128, 128),
+                        (torch.float64, 20, 13)):
+        assert words(dtype, m, n) == 3 * 2 * 8 * n * (n - 1) // 2
+    for dtype, m, n in ((torch.float64, 200, 100), (torch.float32, 200, 150)):
+        assert words(dtype, m, n) == 0
+    for dtype, m, n in ((torch.float64, 200, 150), (torch.float64, 300, 200)):
+        assert words(dtype, m, n) == 3 * m * n

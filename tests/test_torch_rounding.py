@@ -130,7 +130,7 @@ def test_wavefront_stages_are_the_row_cyclic_sweep():
     """Every pair once per sweep, the pairs of a stage disjoint, and any two
     pairs that share a column kept in their row-cyclic order."""
     for n in range(1, 14):
-        stages = tsvd.wavefront_stages(n)
+        stages = tsvd.stages(n)
         seq = [(p, q) for ps, qs in stages for p, q in zip(ps, qs)]
         cyclic = [(p, q) for p in range(n) for q in range(p + 1, n)]
         assert sorted(seq) == cyclic
@@ -193,6 +193,147 @@ def test_small_svd_plain_follows_the_pallas_rotations():
     np.testing.assert_allclose(s.numpy(), np.asarray(sj), atol=1e-12)
     np.testing.assert_allclose(U.numpy(), np.asarray(Uj), atol=1e-10)
     np.testing.assert_allclose(V.numpy(), np.asarray(Vj), atol=1e-10)
+
+
+def _half_atan2_reference(x, y, work):
+    """cos and sin of atan2(y, x) / 2 in the wider type ``work``; for x < 0
+    through the complementary angle, (sin psi, +-cos psi) with psi =
+    atan2(|y|, -x) / 2, which carries no cancellation when c is small."""
+    x, y = x.astype(work), y.astype(work)
+    theta = np.arctan2(y, x) / 2
+    psi = np.arctan2(np.abs(y), -x) / 2
+    neg = x < 0
+    c = np.where(neg, np.sin(psi), np.cos(theta))
+    s = np.where(neg, np.copysign(np.cos(psi), y), np.sin(theta))
+    return c, s
+
+
+@pytest.mark.parametrize("dtype,work,scale", [
+    (np.float64, np.longdouble, 150), (np.float32, np.float64, 18)])
+def test_rotation_matches_half_atan2(dtype, work, scale):
+    """The angle without trigonometry (``small_svd.rotation``) against cos
+    and sin of atan2(2 gamma, alpha - beta) / 2 taken in a wider type:
+    within 2 ulp relative to each of c and s (the formula reaches 1.35),
+    and within 2 eps of the working type's own cos / sin of half of
+    atan2. Cases: all four quadrants, x < 0 with |y| << |x| (where
+    sqrt((1 + u) / 2) would cancel), alpha == beta, and magnitudes near
+    10^(+-scale) (f64 1e+-150; f32 1e+-18, within its range for squared
+    norms). Skipped rotations give (1, 0)."""
+    assert np.finfo(work).eps < np.finfo(dtype).eps / 100
+    eps = np.finfo(dtype).eps
+    rng = np.random.default_rng(11)
+    for mag in (1.0, 10.0 ** scale, 10.0 ** -scale):
+        x = rng.standard_normal(2000) * mag
+        y = rng.standard_normal(2000) * mag
+        x[:500] = -np.abs(x[:500])
+        y[:500] *= 10.0 ** rng.uniform(-12, -1, 500)
+        x[500:550] = 0.0
+        x, y = x.astype(dtype), y.astype(dtype)
+        for qx, qy in ((1, 1), (1, -1), (-1, 1), (-1, -1)):
+            assert ((np.sign(x) == qx) & (np.sign(y) == qy)).any()
+        # alpha - beta = x exactly: alpha = |x| and beta = |x| - x are
+        # exact in binary floating point.
+        alpha, beta = np.abs(x), np.abs(x) - x
+        assert (alpha - beta == x).all()
+        c, s = tsvd.rotation(torch.from_numpy(alpha), torch.from_numpy(beta),
+                             torch.from_numpy(y / 2))
+        c, s = c.numpy(), s.numpy()
+        assert c.dtype == dtype and (c >= 0).all()
+        cr, sr = _half_atan2_reference(x, y, work)
+        assert (np.abs(c - cr) <= 2 * eps * np.abs(cr)).all()
+        assert (np.abs(s - sr) <= 2 * eps * np.abs(sr)).all()
+        theta = np.arctan2(y, x) / 2
+        assert np.abs(c - np.cos(theta)).max() <= 2 * eps
+        assert np.abs(s - np.sin(theta)).max() <= 2 * eps
+    tiny = np.finfo(dtype).tiny
+    tdtype = torch.float64 if dtype == np.float64 else torch.float32
+    c, s = tsvd.rotation(*(torch.tensor([v], dtype=tdtype)
+                           for v in (1.0, 2.0, tiny)))
+    assert (float(c), float(s)) == (1.0, 0.0)
+
+
+def test_stages_overlap_sweeps_in_row_cyclic_order():
+    """``stages(n, sweeps)``, the schedule of the kernel and the plain
+    version: pair (p, q) of sweep k at stage k (2n - 1) + 2p + q, every
+    pair of every sweep once, the pairs of a stage disjoint, and each
+    column's uses in the flat row-cyclic sequence (sweep after sweep) at
+    increasing stages, so the rotations are the sequential ones. Uses one
+    stage apart are a row's consecutive pairs (p, q), (p, q + 1), whose
+    column p the kernel keeps in one slot's registers; all others are at
+    least two apart, which lets the kernel synchronise every second stage."""
+    for n in range(1, 15):
+        for sweeps in (1, 2, 3):
+            st = tsvd.stages(n, sweeps)
+            offset = 2 * n - 1
+            got = sorted((t + 1, p, q) for t, (ps, qs) in enumerate(st)
+                         for p, q in zip(ps, qs))
+            seq = [(k, p, q) for k in range(sweeps) for p in range(n)
+                   for q in range(p + 1, n)]
+            assert got == sorted((k * offset + 2 * p + q, p, q)
+                                 for k, p, q in seq)
+            for ps, qs in st:
+                assert len(set(ps) | set(qs)) == 2 * len(ps)
+            last = {}
+            for k, p, q in seq:
+                t = k * offset + 2 * p + q
+                for col in (p, q):
+                    t0, pair0 = last.get(col, (-1, None))
+                    assert t0 + 2 <= t or (t0 + 1 == t and pair0 == (k, p)
+                                           and col == p)
+                    last[col] = (t, (k, p))
+    assert len(tsvd.stages(128, 8)) == 17 * 128 - 12
+
+
+def _replay_order(n, rb=8, qb=4):
+    """The order in which the CUDA kernel replays one sweep's rotations
+    onto V (csrc/small_svd.cu, replay_unit): units of rb rows p0 .. p0 +
+    nb - 1, first the pairs among them row by row, then the columns q >=
+    p0 + nb in steps of qb, each step row-major over (row, column). The log
+    is written in unit order: the pairs among the rows, then q-major."""
+    order, log = [], []
+    for p0 in range(0, n - 1, rb):
+        nb = min(rb, n - 1 - p0)
+        rows = range(p0, p0 + nb)
+        tri = [(p, q) for p in rows for q in range(p + 1, p0 + nb)]
+        order += tri
+        log += tri
+        log += [(p, q) for q in range(p0 + nb, n) for p in rows]
+        for q0 in range(p0 + nb, n, qb):
+            order += [(p, q) for p in rows
+                      for q in range(q0, min(q0 + qb, n))]
+    return order, log
+
+
+def test_replay_order_keeps_the_row_cyclic_order():
+    """The kernel's V replay applies every pair of a sweep once, in an
+    order that keeps the row-cyclic order of any two pairs that share a
+    column (so it gives the sequential product of the rotations), and the
+    A phase's running log position (csrc/small_svd.cu) puts each pair at
+    its place in the replay's log."""
+    for n in list(range(2, 20)) + [33, 128]:
+        cyclic = [(p, q) for p in range(n) for q in range(p + 1, n)]
+        order, log = _replay_order(n)
+        assert sorted(order) == cyclic and sorted(log) == cyclic
+        rank = {pq: i for i, pq in enumerate(cyclic)}
+        last = {}
+        for p, q in order:
+            for col in (p, q):
+                assert last.get(col, -1) < rank[(p, q)]
+                last[col] = rank[(p, q)]
+        at = {pq: i for i, pq in enumerate(log)}
+        for p in range(n - 1):
+            # the kernel's running log position along row p (set_row, then
+            # +1 while q is a row of the unit, then the q-major stride nb)
+            p0 = p // 8 * 8
+            nb = min(8, n - 1 - p0)
+            i, qend = p - p0, p0 + nb
+            start = p0 * (n - 1) - p0 * (p0 - 1) // 2
+            qmajor = start + nb * (nb - 1) // 2 + i
+            pos = start + i * nb - i * (i + 1) // 2 if p + 1 < qend else qmajor
+            for q in range(p + 1, n):
+                assert at[(p, q)] == pos
+                pos = (pos + 1 if q + 1 < qend
+                       else qmajor if q + 1 == qend else pos + nb)
 
 
 # -- the rounding pass ------------------------------------------------------------
