@@ -17,16 +17,19 @@ before it and read just after:
 3. the right-looking driver: the same covariance at N = 8192, tile 128,
    ``cholesky`` and ``ldlt`` with ``algo="right"``, gated on the same
    residual and finite solves; it logs ``small_svd``'s launches per
-   (T, m, n) and, timed apart, launches x kernel ms against the bound per
-   shape (the round path logs its launches per shape too).
+   (T, m, n) and ``batched_qr``'s per (T, b, r) and, timed apart, launches
+   x kernel ms against the bound per shape (the round path logs its
+   launches per shape too).
 
 Then it holds each kernel against its plain PyTorch version on the card
 (f64, f32 and bf16; f64 and f32 for the QR and SVD) at the paths' shapes
-(``lr_sample`` at each of the main path's column buckets, ``small_svd`` at
-the right driver's panel shapes and on a spectrum whose unsorted factors
-must match the plain version's rotations), checks that each gate rejects a
-planted fault and that two kernel calls agree bit for bit, and checks a
-small end-to-end run on the card against the same run on the CPU.
+(``lr_sample`` at each of the main path's column buckets, ``small_svd`` and
+``batched_qr`` at the right driver's panel shapes, ``small_svd`` on a
+spectrum whose unsorted factors must match the plain version's rotations,
+``batched_qr`` on graded tiles like the right driver's densified ones under
+the QR contract), checks that each gate rejects a planted fault and that
+two kernel calls agree bit for bit, and checks a small end-to-end run on
+the card against the same run on the CPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``--n`` cuts the main path's size for a quick look;
@@ -80,6 +83,11 @@ TOL_SCALE = {"small_svd": 10.0}
 # 4e-14 in f64 and 2.4e-5 in f32.
 SAME_ROTATIONS_ATOL = {"float64": 1e-10, "float32": 2e-4}
 SAME_ROTATIONS = "same rotations T=4 m=128 n=128"
+# batched_qr's graded case: on such tiles Q elementwise is no gate for any
+# summation order, nor R at 1e-12 (the plain version with Y's rows permuted
+# moves R by 4.7e-12 per tile, relative, at T = 2016 in f64 on an NVIDIA
+# H100 80GB HBM3), so it is held to the QR contract (``qr_graded_gate``).
+QR_GRADED = "right densified graded T=2016 b=128 r=128"
 # Cases held to an absolute tolerance per dtype name, in place of the
 # gate's relative one: (kernel, shape label) -> {dtype name: atol}.
 CASE_ATOL = {("small_svd", SAME_ROTATIONS): SAME_ROTATIONS_ATOL}
@@ -159,7 +167,7 @@ def build_kernels() -> None:
         log(f"  ptxas {name}: {len(regs)} kernels, registers "
             f"{min(regs, default=0)}-{max(regs, default=0)}, "
             f"spill stores max {max(spills, default=0)} B")
-        if name == "small_svd":
+        if name in ("small_svd", "batched_qr"):
             # each kernel: its entry, then registers and spills
             for line in text.splitlines():
                 if "Compiling entry" in line or "spill stores" in line \
@@ -172,8 +180,9 @@ def build_kernels() -> None:
 
 def kernel_cases(torch, ranks_a, device="cuda"):
     """(name, shape label, headline, make(dtype) -> (kernel, plain, fault,
-    library, bytes_needed, flops_needed, post)) at the paths' shapes
-    (``CASE_ATOL`` gives some cases an absolute tolerance).
+    library, bytes_needed, flops_needed, post[, gate])) at the paths' shapes
+    (``CASE_ATOL`` gives some cases an absolute tolerance; a case with its
+    own ``gate(out, want) -> (ok, info)`` is held to that instead).
 
     Main path: N=32768, tile 512, r_max 128, bs 16 (``lr_sample`` at each
     (T, J) column bucket of ``LR_BUCKETS``); ``ranks_a`` are the A-tile
@@ -184,7 +193,8 @@ def kernel_cases(torch, ranks_a, device="cuda"):
     128) and (1, 128, 128) at a panel rounding. Inputs are
     scaled so that outputs are O(1); the square QR inputs are shifted by
     3 I so that Q is well conditioned (a random square panel's Q moves by
-    cond x rounding). ``fault`` is the plain version with one rank
+    cond x rounding); ``QR_GRADED`` takes graded covariance tiles under
+    the QR contract instead. ``fault`` is the plain version with one rank
     (``batched_gemm``), one factor column (``tile_chain``: ``width`` one
     less), the last j term (``lr_sample``), the
     last column (``batched_qr``) or seven of the eight sweeps
@@ -284,6 +294,24 @@ def kernel_cases(torch, ranks_a, device="cuda"):
                     6.0 * T * b * r * r, None)
         return make
 
+    def graded(T):
+        # exponential-covariance tiles between two clusters of 128 points
+        # (l = 0.1), as the right driver densifies them: graded, about a
+        # quarter of the columns live at the drop tolerance
+        def make(dtype):
+            Y = graded_tiles(torch, T, g, device).to(dtype)
+            Yf = Y.clone()
+            Yf[:, :, -1] = 0.0
+            isz = Y.element_size()
+            return (lambda: qr.batched_qr_cuda(Y),
+                    lambda: qr.batched_qr_plain(Y),
+                    lambda: qr.batched_qr_plain(Yf),
+                    lambda: torch.linalg.qr(Y),
+                    (2 * T * 128 * 128 + T * 128 * 128) * isz,
+                    6.0 * T * 128 ** 3, None, qr_graded_gate(Y, TOL[
+                        str(dtype).removeprefix("torch.")]))
+        return make
+
     def jacobi(T, m, n):
         # 8 sweeps of n(n-1)/2 rotations at 12 m + 6 n FLOPs each, skipped
         # rotations included (the Pallas kernel does their arithmetic too).
@@ -361,6 +389,11 @@ def kernel_cases(torch, ranks_a, device="cuda"):
          mgs(2016, 512, 128)),
         ("batched_qr", "right T=2016 b=128 r=128 (+3I)", False,
          mgs(2016, 128, 128, shift=3.0)),
+        ("batched_qr", "panel T=63 b=128 r=128 (+3I)", False,
+         mgs(63, 128, 128, shift=3.0)),
+        ("batched_qr", "one tile T=1 b=128 r=128 (+3I)", False,
+         mgs(1, 128, 128, shift=3.0)),
+        ("batched_qr", QR_GRADED, False, graded(2016)),
         ("batched_qr", "ragged T=5 b=96 r=24 dead column", False,
          mgs(5, 96, 24, dead=True)),
         ("small_svd", "core T=2016 m=128 n=128", True,
@@ -400,6 +433,85 @@ def svd_column_signs(V):
     return torch.sign(torch.take_along_dim(V, top, dim=1))
 
 
+def graded_tiles(torch, T, g, device="cuda"):
+    """(T, 128, 128) f64 exponential-covariance tiles (l = 0.1) between two
+    clusters of 128 points, in [0, 0.5]^2 and [0.5, 1]^2."""
+    pa = torch.rand((T, 128, 2), generator=g, device=device,
+                    dtype=torch.float64) * 0.5
+    pb = pa.new_empty(pa.shape).uniform_(0.5, 1.0, generator=g)
+    return torch.exp(-torch.cdist(pa, pb) / 0.1).contiguous()
+
+
+def qr_graded_gate(Y, tol: float):
+    """The QR contract on graded tiles, as a gate ``(out, want) -> (ok,
+    info)`` against the plain version:
+
+    - the same dead columns, except at the cut: a column that one version
+      keeps and the other drops must have, in the version that keeps it,
+      |R[j, j]| (its residual norm) at most twice the first sweep's
+      tolerance rel * max_j |y_j| (f32 puts a few of 2016 x 128 columns
+      within rounding of it);
+    - R, over the tiles without such a column, within max(tol, 10x the
+      plain version's own move when Y's rows are permuted) per tile
+      (relative Frobenius; a row permutation changes only the summation
+      order, and moves R by 4.7e-12 at T = 2016 in f64 on an H100);
+    - ||Q R - Y|| / ||Y|| and ||Q_live^T Q_live - I||, over all tiles,
+      within 10x the plain version's."""
+    import torch
+    from repro_torch.kernels import batched_qr as qr
+    Yd = Y.double()
+    tol1 = qr.REL[Y.dtype] * Yd.norm(dim=1).amax(dim=1, keepdim=True)
+
+    def contract(Q, R):
+        Q, R = Q.double(), R.double()
+        dead = Q.abs().amax(dim=1) == 0
+        res = ((Q @ R - Yd).norm(dim=(1, 2)) / Yd.norm(dim=(1, 2))).max()
+        gram = Q.transpose(1, 2) @ Q - torch.diag_embed((~dead).double())
+        return dead, float(res), float(gram.norm(dim=(1, 2)).max())
+
+    def flips(dead, R, dead_p, Rp):
+        """Columns decided differently, and each one's kept |R[j, j]| /
+        tol1 (0 elsewhere)."""
+        flipped = dead != dead_p
+        kept = torch.where(dead_p, R.diagonal(dim1=1, dim2=2),
+                           Rp.diagonal(dim1=1, dim2=2)).double().abs()
+        return flipped, torch.where(flipped, kept / tol1,
+                                    torch.zeros_like(kept))
+
+    def r_rel(R, Rp, tiles):
+        R, Rp = R[tiles].double(), Rp[tiles].double()
+        if R.shape[0] == 0:
+            return 0.0
+        return float(((R - Rp).norm(dim=(1, 2))
+                      / Rp.norm(dim=(1, 2))).max())
+
+    perm = torch.randperm(Y.shape[1], generator=torch.Generator().manual_seed(
+        0)).to(Y.device)
+    Qq, Rq = qr.batched_qr_plain(Y[:, perm].contiguous())
+
+    def check(out, want):
+        (Q, R), (Qp, Rp) = out, want
+        dead, res, orth = contract(Q, R)
+        dead_p, res_p, orth_p = contract(Qp, Rp)
+        flipped, ratio = flips(dead, R, dead_p, Rp)
+        flipped_q, _ = flips(Qq.abs().amax(dim=1) == 0, Rq, dead_p, Rp)
+        spread = r_rel(Rq, Rp, ~flipped_q.any(dim=1))
+        info = {"r_rel_err": r_rel(R, Rp, ~flipped.any(dim=1)),
+                "r_allowed": max(tol, 10 * spread),
+                "r_spread_row_permuted": spread,
+                "dead_differ": int(flipped.sum()),
+                "dead_differ_max_rjj_over_tol": float(ratio.max()),
+                "dead_differ_row_permuted": int(flipped_q.sum()),
+                "live": int((~dead_p).sum()), "columns": dead_p.numel(),
+                "residual": res, "residual_plain": res_p,
+                "orthogonality": orth, "orthogonality_plain": orth_p}
+        ok = (info["dead_differ_max_rjj_over_tol"] <= 2.0
+              and info["r_rel_err"] <= info["r_allowed"]
+              and res <= 10 * res_p and orth <= 10 * orth_p)
+        return ok, info
+    return check
+
+
 def bitwise_equal(a, b) -> bool:
     """Whether two kernel results (a tensor or a tuple of them) are equal
     bit for bit."""
@@ -424,19 +536,30 @@ def check_kernels(ranks_a, only=None) -> dict:
             dn = str(dtype).removeprefix("torch.")
             tol = TOL[dn] * TOL_SCALE.get(name, 1.0)
             abs_tol = CASE_ATOL.get((name, label), {}).get(dn)
-            kernel, plain, fault, library, nbytes, flops, post = make(dtype)
+            case = make(dtype)
+            kernel, plain, fault, library, nbytes, flops, post = case[:7]
             post = post or (lambda out: out)
             raw = plain()
             want = post(raw)
             got = kernel()
-            err, atol = gate(post(got), want, tol, abs_tol)
-            fault_err, fault_atol = gate(post(fault()), want, tol, abs_tol)
-            ok = err <= atol
+            rec = {"kernel": name, "shape": label, "dtype": dn}
+            if len(case) > 7:   # the case's own gate
+                ok, info = case[7](got, raw)
+                fault_ok, fault_info = case[7](fault(), raw)
+                err, atol = info["r_rel_err"], info["r_allowed"]
+                fault_err, fault_atol = (fault_info["r_rel_err"],
+                                         fault_info["r_allowed"])
+                rec.update(contract=info, planted_fault_contract=fault_info)
+            else:
+                err, atol = gate(post(got), want, tol, abs_tol)
+                fault_err, fault_atol = gate(post(fault()), want, tol,
+                                             abs_tol)
+                ok, fault_ok = err <= atol, fault_err <= fault_atol
             same = bitwise_equal(got, kernel())
-            rec = {"kernel": name, "shape": label, "dtype": dn,
-                   "max_abs_err": err, "atol": atol, "ok": ok,
-                   "planted_fault_err": fault_err,
-                   "planted_fault_atol": fault_atol, "deterministic": same}
+            rec.update({"max_abs_err": err, "atol": atol, "ok": ok,
+                        "planted_fault_err": fault_err,
+                        "planted_fault_atol": fault_atol,
+                        "deterministic": same})
             if label == SAME_ROTATIONS:
                 # columns whose sign the kernel and the plain version differ in
                 rec["sign_flips"] = int((svd_column_signs(got[2]) !=
@@ -461,14 +584,15 @@ def check_kernels(ranks_a, only=None) -> dict:
                 raise AssertionError(f"{name} {label} {dn}: kernel disagrees "
                                      f"with its plain version "
                                      f"(max abs err {err:.3e} > {atol:.3e})")
-            if fault_err <= fault_atol:
+            if fault_ok:
                 raise AssertionError(f"{name} {label} {dn}: the gate let a "
                                      f"planted fault through (err "
                                      f"{fault_err:.3e} <= {fault_atol:.3e})")
             if not same:
                 raise AssertionError(f"{name} {label} {dn}: two kernel calls "
                                      f"on the same inputs differ")
-            results[(name, label, dn)] = dict(rec, headline=headline)
+            results[(name, label, dn)] = dict(rec, headline=headline,
+                                              own_gate=len(case) > 7)
             del want, got, kernel, plain, fault, library
         torch.cuda.empty_cache()
     return results
@@ -681,6 +805,7 @@ def rounding_phase(op, K, g, eps: float = 1e-6) -> dict:
     rank rose, and the rounded operator's matvec is within 1e-5 (relative)
     of the dense ``K x``."""
     import torch
+    from repro_torch.kernels import batched_qr as qr
     from repro_torch.kernels import ops
     from repro_torch.kernels import small_svd as svd
 
@@ -688,7 +813,9 @@ def rounding_phase(op, K, g, eps: float = 1e-6) -> dict:
     rop, sec = sync_time(lambda: op.round(eps))
     launches = ops.launch_counts()
     log(f"small_svd launches per (T, m, n) on the round path: "
-        f"{svd_shapes(svd.SHAPES)}")
+        f"{shapes_line(svd.SHAPES)}")
+    log(f"batched_qr launches per (T, b, r) on the round path: "
+        f"{shapes_line(qr.SHAPES)}")
     r0, r1 = op.A.ranks, rop.A.ranks
     x = torch.randn((K.shape[0],), generator=g, device="cuda", dtype=K.dtype)
     y = K @ x
@@ -709,35 +836,48 @@ def rounding_phase(op, K, g, eps: float = 1e-6) -> dict:
 # -- phase 7: the right-looking driver ----------------------------------------------------
 
 
-def svd_shapes(shapes: dict) -> str:
-    return ", ".join(f"({t}, {m}, {n}) {c}" for (t, m, n), c in
+def shapes_line(shapes: dict) -> str:
+    return ", ".join(f"{shape} {c}" for shape, c in
                      sorted(shapes.items(), reverse=True))
 
 
-def svd_shape_times(shapes: dict, dtype_name: str = "float64") -> float:
-    """Times ``small_svd`` at each (T, m, n) a path launched it with (random
-    cores, CUDA events) and logs launches x kernel ms against launches x
-    bound ms per shape; returns the summed kernel seconds, the path's
-    ``small_svd`` time as these shapes give it."""
+def shape_times(name: str, shapes: dict, dtype_name: str = "float64"
+                ) -> float:
+    """Times ``small_svd`` (shapes (T, m, n)) or ``batched_qr`` ((T, b,
+    r)) at each shape a path launched it with (random inputs, the square
+    QR panels shifted by 3 I; CUDA events) and logs launches x kernel ms
+    against launches x bound ms per shape; returns the summed kernel
+    seconds, the path's time in that kernel as these shapes give it."""
     import torch
+    from repro_torch.kernels import batched_qr as qr
     from repro_torch.kernels import small_svd as svd
     dtype = getattr(torch, dtype_name)
     g = torch.Generator(device="cuda").manual_seed(3)
     total_ms = total_bound = 0.0
     for (T, m, n), count in sorted(shapes.items(), reverse=True):
-        M = (torch.randn((T, m, n), generator=g, device="cuda",
-                         dtype=torch.float64) / math.sqrt(m)).to(dtype)
-        ms = event_ms(lambda: svd.small_svd_cuda(M), 3 if T > 500 else 10)
-        flops = 8.0 * T * n * (n - 1) / 2 * (12 * m + 6 * n)
-        nbytes = (2 * T * m * n + T * n + T * n * n) * M.element_size()
-        bound = 1e3 * max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype_name])
+        X = torch.randn((T, m, n), generator=g, device="cuda",
+                        dtype=torch.float64) / math.sqrt(m)
+        if name == "small_svd":
+            call = svd.small_svd_cuda
+            flops = 8.0 * T * n * (n - 1) / 2 * (12 * m + 6 * n)
+            words = 2 * T * m * n + T * n + T * n * n
+        else:
+            if m == n:
+                X += 3.0 * torch.eye(m, device="cuda", dtype=X.dtype)
+            call = qr.batched_qr_cuda
+            flops = 6.0 * T * m * n * n
+            words = 2 * T * m * n + T * n * n
+        X = X.to(dtype)
+        ms = event_ms(lambda: call(X), 3 if T > 500 else 10)
+        bound = 1e3 * max(words * X.element_size() / PEAK_BYTES,
+                          flops / PEAK_FLOPS[dtype_name])
         total_ms += count * ms
         total_bound += count * bound
-        log(f"  small_svd ({T}, {m}, {n}) {dtype_name}: {count} launches x "
+        log(f"  {name} ({T}, {m}, {n}) {dtype_name}: {count} launches x "
             f"{ms:.4f} ms = {count * ms:.1f} ms (bound {bound:.4f} ms, x "
             f"{count} = {count * bound:.1f} ms)")
-        del M
-    log(f"  small_svd all shapes: {total_ms:.1f} ms (bound "
+        del X
+    log(f"  {name} all shapes: {total_ms:.1f} ms (bound "
         f"{total_bound:.1f} ms)")
     return total_ms / 1e3
 
@@ -748,9 +888,11 @@ def right_phase(n: int, profile: str | None) -> dict:
     then LDL^T, flat batching). Gates per factorization: the QR, SVD and
     GEMM kernels ran, the randomized residual ``||K z - L D L^T z|| /
     ||K z|| <= 100 eps`` holds and a solve is finite. Logs ``small_svd``'s
-    launches per shape and, after both, its time per shape."""
+    and ``batched_qr``'s launches per shape and, after both, their times
+    per shape."""
     import torch
     from repro_torch import CholOptions, TLROperator, covariance_problem
+    from repro_torch.kernels import batched_qr as qr
     from repro_torch.kernels import ops
     from repro_torch.kernels import small_svd as svd
 
@@ -775,7 +917,8 @@ def right_phase(n: int, profile: str | None) -> dict:
                           profile if kind == "cholesky" else None,
                           "right_cholesky")
         launches = ops.launch_counts()
-        shapes = dict(svd.SHAPES)
+        shapes = {"small_svd": dict(svd.SHAPES),
+                  "batched_qr": dict(qr.SHAPES)}
         LtZ = fact.tri_matvec(Z, trans=True)
         if fact.d is not None:
             LtZ = LtZ * fact.d.reshape(-1, 1)
@@ -798,20 +941,22 @@ def right_phase(n: int, profile: str | None) -> dict:
         assert bool(torch.isfinite(x).all()), f"right {kind}: solve not finite"
         out[f"right_{kind}"] = launches
         out[f"right_{kind}_seconds"] = sec
-        out[f"right_{kind}_svd_shapes"] = shapes
+        out[f"right_{kind}_shapes"] = shapes
         log(f"right {kind}: small_svd launches per (T, m, n): "
-            f"{svd_shapes(shapes)}")
+            f"{shapes_line(shapes['small_svd'])}; batched_qr per (T, b, r): "
+            f"{shapes_line(shapes['batched_qr'])}")
         del fact, LtZ, x
     log(f"right phase max_memory_allocated: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del op, K, KZ, Z
     torch.cuda.empty_cache()
     for kind in ("cholesky", "ldlt"):
-        log(f"right {kind}: small_svd per shape (f64, timed apart from the "
-            f"path):")
-        sec = svd_shape_times(out[f"right_{kind}_svd_shapes"])
-        log(f"right {kind}: small_svd {sec:.3f} s of the factorization's "
-            f"{out[f'right_{kind}_seconds']:.3f} s")
+        for name in ("small_svd", "batched_qr"):
+            log(f"right {kind}: {name} per shape (f64, timed apart from "
+                f"the path):")
+            sec = shape_times(name, out[f"right_{kind}_shapes"][name])
+            log(f"right {kind}: {name} {sec:.3f} s of the factorization's "
+                f"{out[f'right_{kind}_seconds']:.3f} s")
     return out
 
 
@@ -852,9 +997,11 @@ def main() -> int:
             "launches": by_path["main" if name in MAIN_KERNELS
                                 else "right_cholesky"][name],
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            # the elementwise gates' largest error (a case with its own
+            # gate logs its numbers in its line)
             "max_abs_err": max(r["max_abs_err"] for (k, _, d), r in
                                results.items() if k == name and
-                               d == "float64"),
+                               d == "float64" and not r["own_gate"]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],

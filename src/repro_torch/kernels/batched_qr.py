@@ -7,7 +7,11 @@ tolerance ``max(rel * max column norm, tiny)`` from the *current* column
 norms (rel 1e-8 in f64, 1e-4 in f32); a column whose residual norm is not
 above it is zeroed, so rank-deficient columns come out exactly zero and
 inert downstream. The CUDA kernel is ``csrc/batched_qr.cu``; what bounds it
-on the H100 and what the design does about it is noted in the source.
+on the H100 and what the design does about it is noted in the source. For
+b <= 512 and r <= 128 it runs MGS2 in panels of 16 columns, each panel's
+trailing update in the blocked (inverse compact-WY) form of MGS on the
+tensor cores; the source's ``config`` query says which kernel a shape
+takes.
 
 The plain version runs the same MGS2 (not ``torch.linalg.qr``, whose
 Householder Q differs on dead columns), so the kernel is held against it
@@ -23,6 +27,12 @@ import torch
 from . import build
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.reset_launch_counts)
+# launches per (T, b, r) shape since the last reset
+SHAPES: dict[tuple[int, int, int], int] = {}
+# the source's kernel configurations (``config``): the first design, the
+# working matrix in shared memory (b <= 128), panels and chunks streamed
+# through shared memory (128 < b <= 512, r <= 128)
+FIRST, SMEM, STREAM = 0, 1, 2
 
 REL = {torch.float64: 1e-8, torch.float32: 1e-4}
 _MAX_B = 1024  # one register column per warp: 32 words a lane
@@ -83,7 +93,8 @@ def batched_qr_cuda(Y: torch.Tensor, sweeps: int = 2):
     R = Y.new_empty((T, r, r))
     if Q.numel() == 0:
         return Q, R.zero_()
-    # The kernel's source decides whether the panel fits in shared memory.
+    # The kernel's source decides the kernel and whether the first design's
+    # panel fits in shared memory.
     words = build.query("batched_qr", "scratch", Y.dtype, b, r)
     work = Y.new_empty((T, words)) if words else None
     fn = build.entry("batched_qr", Y.dtype)
@@ -92,6 +103,7 @@ def batched_qr_cuda(Y: torch.Tensor, sweeps: int = 2):
              build.stream_handle(Y))
     build.check("batched_qr", err)
     LAUNCHES += 1
+    SHAPES[(T, b, r)] = SHAPES.get((T, b, r), 0) + 1
     return Q, R
 
 

@@ -54,7 +54,8 @@ DTYPES.update(batched_qr=(torch.float64, torch.float32),
 # shapes (-1: none fits); "workspace", the words of device workspace a call
 # needs (lr_sample's partial sums over groups of j, small_svd's rotation
 # logs or working matrices).
-QUERIES = {"batched_qr": {"scratch": (ctypes.c_longlong, 2)},
+QUERIES = {"batched_qr": {"scratch": (ctypes.c_longlong, 2),
+                          "config": (ctypes.c_int, 2)},
            "small_svd": {"workspace": (ctypes.c_longlong, 4)},
            "tile_chain": {"config": (ctypes.c_int, 2)},
            "lr_sample": {"config": (ctypes.c_int, 2),

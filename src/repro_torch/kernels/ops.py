@@ -49,4 +49,5 @@ def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.LAUNCHES = 0
     _lr.SHAPES.clear()
+    _qr.SHAPES.clear()
     _svd.SHAPES.clear()

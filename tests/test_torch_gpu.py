@@ -21,6 +21,9 @@ R factors, exact zero columns, T = 1 / 133 / 2016, bitwise repeats and the
 path by shape.
 """
 
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -475,3 +478,128 @@ def test_cuda_small_svd_path_by_shape(cuda_device):
         assert words(dtype, m, n) == 0
     for dtype, m, n in ((torch.float64, 200, 150), (torch.float64, 300, 200)):
         assert words(dtype, m, n) == 3 * m * n
+
+
+# -- batched_qr: the blocked kernels (b <= 512, r <= 128) --------------------
+
+QR_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def _qr_inputs(T, b, r, dtype, device, seed, shift=0.0):
+    """Random (T, b, r) panels with columns of norm ~1, plus shift * I
+    (a square panel's Q is then well conditioned); tile 0 gets a dead
+    column (column 3 = 2 column 1 - column 0)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    Y = torch.randn((T, b, r), generator=g, device=device,
+                    dtype=torch.float64) / b ** 0.5
+    if shift:
+        Y += shift * torch.eye(b, r, device=device, dtype=Y.dtype)
+    Y[0, :, 3] = 2.0 * Y[0, :, 1] - Y[0, :, 0]
+    return Y.to(dtype)
+
+
+def _qr_close(got, want, tol):
+    """Q and R each within tol times the largest |plain entry|."""
+    return all(float((x.double() - w.double()).abs().max())
+               <= tol * float(w.double().abs().max())
+               for x, w in zip(got, want))
+
+
+def _qr_fault(Y):
+    """The plain version with the last column dropped: the gate must
+    reject it."""
+    Yf = Y.clone()
+    Yf[:, :, -1] = 0.0
+    return tqr.batched_qr_plain(Yf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("T,b,r,shift,cfg", [
+    (1, 128, 128, 3.0, tqr.SMEM), (63, 128, 128, 3.0, tqr.SMEM),
+    (133, 128, 128, 3.0, tqr.SMEM), (2016, 128, 128, 3.0, tqr.SMEM),
+    (4, 512, 128, 0.0, tqr.STREAM), (2, 300, 37, 0.0, tqr.STREAM),
+])
+def test_cuda_batched_qr_blocked(cuda_device, T, b, r, shift, cfg, dtype):
+    """The blocked kernels against the plain MGS2, Q and R elementwise:
+    the right driver's (T, 128, 128) densified tiles at one tile, a panel
+    rounding's 63, one tile more than the card's SMs and a flush's 2016
+    (+3I); op.round's b = 512 factor stacks; ragged b and odd r (one-word
+    copies). The dead column comes out exactly zero, and the
+    planted fault (the last column dropped) is rejected."""
+    assert build.query("batched_qr", "config", dtype, b, r) == cfg
+    assert build.query("batched_qr", "scratch", dtype, b, r) == 0
+    Y = _qr_inputs(T, b, r, dtype, cuda_device, 10, shift)
+    ops.reset_launch_counts()
+    got = ops.batched_qr(Y)
+    want = tqr.batched_qr_plain(Y)
+    assert ops.launch_counts()["batched_qr"] == 1
+    assert tqr.SHAPES == {(T, b, r): 1}
+    assert float(got[0][0, :, 3].abs().max()) == 0.0
+    assert _qr_close(got, want, QR_TOL[dtype])
+    assert not _qr_close(_qr_fault(Y), want, QR_TOL[dtype])
+
+
+def _graded_tiles(T, dtype, device, seed):
+    """(T, 128, 128) exponential-covariance tiles between two clusters of
+    128 points (l = 0.1), as the right-looking driver densifies them:
+    singular values falling from ~10 to rounding level, about a quarter of
+    the columns live at the drop tolerance."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    pa = torch.rand((T, 128, 2), generator=g, device=device,
+                    dtype=torch.float64) * 0.5
+    pb = pa.new_empty(pa.shape).uniform_(0.5, 1.0, generator=g)
+    return torch.exp(-torch.cdist(pa, pb) / 0.1).to(dtype).contiguous()
+
+
+def _smoke():
+    """chip_smoke.py, for its QR contract gate (``qr_graded_gate``)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_batched_qr_graded_contract(cuda_device, dtype):
+    """On graded tiles Q elementwise is no gate for any summation order
+    (reordering the plain version's rows moves Q by 1e-8 in f64), so the
+    kernel is held to the QR contract of chip_smoke.qr_graded_gate: the
+    same dead columns but for columns at the cut, R within max(tol, 10x
+    the plain version's row-permutation spread) per tile, and the
+    reconstruction and orthogonality errors within 10x the plain
+    version's; the planted fault (the last column dropped) fails it."""
+    Y = _graded_tiles(2016, dtype, cuda_device, 11)
+    gate = _smoke().qr_graded_gate(Y, QR_TOL[dtype])
+    want = tqr.batched_qr_plain(Y)
+    ok, info = gate(tqr.batched_qr_cuda(Y), want)
+    assert ok, info
+    assert 0 < info["live"] < info["columns"]
+    assert not gate(_qr_fault(Y), want)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("b", [128, 512])
+def test_cuda_batched_qr_repeatable(cuda_device, b, dtype):
+    """Two calls on the same panels are bitwise equal."""
+    Y = _qr_inputs(133, b, 128, dtype, cuda_device, 12, 3.0 if b == 128 else 0.0)
+    a, c = tqr.batched_qr_cuda(Y), tqr.batched_qr_cuda(Y)
+    assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
+
+
+@pytest.mark.gpu
+def test_cuda_batched_qr_config_by_shape(cuda_device):
+    """The source's choice: the shared-memory kernel for b <= 128, the
+    streaming kernel for 128 < b <= 512 with r <= 128, the first design
+    (with its device scratch where its panel does not fit) otherwise."""
+    for dtype in (torch.float64, torch.float32):
+        def cfg(b, r):
+            return build.query("batched_qr", "config", dtype, b, r)
+        assert cfg(128, 128) == cfg(96, 24) == cfg(16, 1) == tqr.SMEM
+        assert cfg(512, 128) == cfg(129, 128) == cfg(300, 37) == tqr.STREAM
+        assert cfg(512, 129) == cfg(1024, 40) == cfg(513, 16) == tqr.FIRST
+    assert build.query("batched_qr", "scratch", torch.float64, 1024, 40) \
+        == 1024 * 40

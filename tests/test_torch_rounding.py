@@ -123,6 +123,111 @@ def test_batched_qr_rejects_wide_panels_and_other_dtypes():
         ops.batched_qr(torch.zeros((1, 8, 4), dtype=torch.bfloat16))
 
 
+def _blocked_mgs2(Y, nb, sweeps=2):
+    """MGS2 in panels of ``nb`` columns, each panel's trailing update in the
+    blocked form the CUDA kernels use: with P the finished panel, S = P^T
+    W_t, (I + strict_lower(P^T P)) D = S by forward substitution, W_t -= P
+    D. That is MGS's own recurrence (d_a = p_a^T w - sum_{c<a} p_a^T p_c
+    d_c); only the order of the sums differs. A ragged last panel is
+    narrower."""
+    T, b, r = Y.shape
+    rel, tiny = tqr.REL[Y.dtype], torch.finfo(Y.dtype).tiny
+    W = Y.clone()
+    for _ in range(sweeps):
+        col = W.square().sum(dim=1).sqrt()
+        tol = (rel * col.amax(dim=1, keepdim=True)).clamp(min=tiny)
+        for k0 in range(0, r, nb):
+            k1 = min(k0 + nb, r)
+            for k in range(k0, k1):
+                q = W[:, :, k]
+                nrm = q.square().sum(dim=1, keepdim=True).sqrt()
+                q = torch.where(nrm > tol, q / torch.maximum(nrm, tol),
+                                torch.zeros_like(q))
+                W[:, :, k] = q
+                later = W[:, :, k + 1:k1]
+                later -= q[:, :, None] * torch.einsum("tb,tbj->tj", q,
+                                                      later)[:, None, :]
+            if k1 < r:
+                P = W[:, :, k0:k1]
+                G = P.transpose(1, 2) @ P
+                D = P.transpose(1, 2) @ W[:, :, k1:]
+                for a in range(1, k1 - k0):
+                    D[:, a] -= torch.einsum("tc,tcj->tj", G[:, a, :a],
+                                            D[:, :a])
+                W[:, :, k1:] -= P @ D
+    return W, W.transpose(1, 2) @ Y
+
+
+def _graded_tiles(T, seed):
+    """(T, 128, 128) exponential-covariance tiles (l = 0.1) between two
+    clusters of 128 points, in [0, 0.5]^2 and [0.5, 1]^2: graded singular
+    values, a quarter to a third of the columns live at the drop
+    tolerance, as the right-looking driver densifies its tiles."""
+    rng = np.random.default_rng(seed)
+    pa = 0.5 * rng.random((T, 128, 2))
+    pb = 0.5 + 0.5 * rng.random((T, 128, 2))
+    d = np.sqrt(((pa[:, :, None, :] - pb[:, None, :, :]) ** 2).sum(-1))
+    return np.exp(-d / 0.1)
+
+
+def _contract(Y, Q, R):
+    """(dead-column mask, max_t ||Q R - Y|| / ||Y||, max_t ||Q_live^T
+    Q_live - I||) of one QR, in f64."""
+    Y, Q, R = (np.asarray(x, np.float64) for x in (Y, Q, R))
+    dead = np.abs(Q).max(axis=1) == 0
+    res = (np.linalg.norm(Q @ R - Y, axis=(1, 2))
+           / np.linalg.norm(Y, axis=(1, 2))).max()
+    gram = np.swapaxes(Q, 1, 2) @ Q - np.stack([np.diag(~d) for d in dead])
+    return dead, res, np.linalg.norm(gram, axis=(1, 2)).max()
+
+
+@pytest.mark.parametrize("nb", [16, 8])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+@pytest.mark.parametrize("T,b,r", [(2, 40, 24), (3, 64, 40)])
+def test_blocked_mgs2_matches_pallas_and_plain(T, b, r, dtype, nb):
+    """The blocked form of the CUDA kernels (panels of 16 or 8, a ragged
+    last panel) is MGS2: Q and R elementwise against the Pallas kernel and
+    the plain version, at the kernel tolerances, with a dead column."""
+    Y = np.array(_rand(jax.random.PRNGKey(5), (T, b, r), dtype),
+                 np.float64)
+    Y[0][:, 5] = 2.0 * Y[0][:, 1] - Y[0][:, 0]
+    Y = Y.astype(np.dtype(dtype))
+    Q, R = _blocked_mgs2(_t(Y, dtype), nb)
+    assert float(Q[0, :, 5].abs().max()) == 0.0
+    tol = TOL[dtype]
+    for Qx, Rx in (batched_qr_pallas(jnp.asarray(Y), interpret=True),
+                   tqr.batched_qr_plain(_t(Y, dtype))):
+        np.testing.assert_allclose(Q.double().numpy(),
+                                   np.asarray(Qx, np.float64), rtol=tol,
+                                   atol=tol * np.sqrt(b))
+        np.testing.assert_allclose(R.double().numpy(),
+                                   np.asarray(Rx, np.float64), rtol=tol,
+                                   atol=tol * np.sqrt(b))
+
+
+@pytest.mark.parametrize("nb", [16, 8])
+def test_blocked_mgs2_graded_contract(nb):
+    """On graded covariance tiles Q elementwise is no gate for any
+    summation order (permuting the plain version's rows moves Q by 1e-8),
+    so the blocked form is held to the QR contract against the plain
+    version and the Pallas kernel: the same dead columns, R within 1e-12
+    relative (per tile, Frobenius), and the reconstruction and
+    orthogonality errors within 10x theirs."""
+    Y = _graded_tiles(3, 6)
+    Q, R = (x.numpy() for x in _blocked_mgs2(torch.from_numpy(Y), nb))
+    dead, res, orth = _contract(Y, Q, R)
+    assert 0 < (~dead).sum() < dead.size
+    for Qx, Rx in (batched_qr_pallas(jnp.asarray(Y), interpret=True),
+                   tqr.batched_qr_plain(torch.from_numpy(Y))):
+        Qx, Rx = np.asarray(Qx, np.float64), np.asarray(Rx, np.float64)
+        dead_x, res_x, orth_x = _contract(Y, Qx, Rx)
+        np.testing.assert_array_equal(dead, dead_x)
+        rel = (np.linalg.norm(R - Rx, axis=(1, 2))
+               / np.linalg.norm(Rx, axis=(1, 2)))
+        assert rel.max() <= 1e-12
+        assert res <= 10 * res_x and orth <= 10 * orth_x
+
+
 # -- small_svd ------------------------------------------------------------------
 
 

@@ -13,7 +13,7 @@ Run from the root of a checkout, on a machine with the card:
     python3 tools/kernel_bench.py tile_chain [lr_sample small_svd ...]
 
 The smoke's build step prints each source's registers and spills (for
-``small_svd``, every kernel's ptxas lines) first.
+``small_svd`` and ``batched_qr``, every kernel's ptxas lines) first.
 
 Exits non-zero without a CUDA card or when a gate fails.
 """
