@@ -17,19 +17,25 @@ before it and read just after:
 3. the right-looking driver: the same covariance at N = 8192, tile 128,
    ``cholesky`` and ``ldlt`` with ``algo="right"``, gated on the same
    residual and finite solves; it logs ``small_svd``'s launches per
-   (T, m, n) and ``batched_qr``'s per (T, b, r) and, timed apart, launches
-   x kernel ms against the bound per shape (the round path logs its
-   launches per shape too).
+   (T, m, n), ``batched_qr``'s per (T, b, r) and ``batched_gemm``'s per
+   (T, m, k, n) with their mean live rank and, timed apart, launches x
+   kernel ms against the bound per shape (the main and round paths log
+   their launches per shape too).
 
 Then it holds each kernel against its plain PyTorch version on the card
 (f64, f32 and bf16; f64 and f32 for the QR and SVD) at the paths' shapes
-(``lr_sample`` at each of the main path's column buckets, ``small_svd`` and
+(``lr_sample`` at each of the main path's column buckets, ``batched_gemm``
+at the right driver's and the rounding pass's shapes and with garbage past
+each rank, ``small_svd`` and
 ``batched_qr`` at the right driver's panel shapes, ``small_svd`` on a
 spectrum whose unsorted factors must match the plain version's rotations,
 ``batched_qr`` on graded tiles like the right driver's densified ones under
 the QR contract), checks that each gate rejects a planted fault and that
 two kernel calls agree bit for bit, and checks a small end-to-end run on
-the card against the same run on the CPU.
+the card against the same run on the CPU. Kernel times are CUDA events
+over back-to-back calls; a sampling kernel's case under DISPATCH_MS is
+also timed from a CUDA graph (``graph_ms`` and its kin beside ``ms``),
+since the host's dispatch sets the pace of back-to-back calls there.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``--n`` cuts the main path's size for a quick look;
@@ -43,6 +49,8 @@ checkout. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -93,6 +101,10 @@ QR_GRADED = "right densified graded T=2016 b=128 r=128"
 CASE_ATOL = {("small_svd", SAME_ROTATIONS): SAME_ROTATIONS_ATOL}
 KERNELS = ("batched_gemm", "tile_chain", "lr_sample", "batched_qr",
            "small_svd")
+# Below DISPATCH_MS a sampling kernel's mean over back-to-back calls
+# (``event_ms``) is the host's dispatch rate, not the kernel: such cases are
+# also timed as GRAPH_CALLS calls replayed from a CUDA graph (``graph_ms``).
+DISPATCH_MS, GRAPH_CALLS = 0.1, 50
 MAIN_KERNELS = ("batched_gemm", "tile_chain", "lr_sample")
 ROUND_KERNELS = ("batched_gemm", "batched_qr", "small_svd")
 REPLACES = {
@@ -122,6 +134,36 @@ def sync_time(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def graph_ms(fn, replays: int = 5) -> float:
+    """Mean device time of ``fn`` with the host's dispatch taken out:
+    GRAPH_CALLS calls captured in one CUDA graph (after two warm calls on
+    the capturing stream), the graph replayed ``replays`` times between
+    CUDA events. Inputs stay in L2 from one call to the next when they
+    fit."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (GRAPH_CALLS * replays)
+    del graph
+    return ms
 
 
 def event_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -218,12 +260,20 @@ def kernel_cases(torch, ranks_a, device="cuda"):
                         dtype=torch.float32) * scale
         return x.to(dtype)
 
-    def bgemm(m, k, n, ranks):
+    def bgemm(m, k, n, ranks, garbage=False):
+        # garbage: A's columns and B's rows past each rank hold +-1e6, which
+        # the plain version masks by multiplication and the kernel must
+        # never read
         def make(dtype):
             T = ranks.shape[0]
             A = randn((T, m, k), dtype)
             B = randn((T, k, n), dtype, 1 / math.sqrt(k))
-            rs = int(ranks.sum())
+            if garbage:
+                dead = (torch.arange(k, device=device)[None, :]
+                        >= ranks[:, None])
+                A = A.masked_fill(dead[:, None, :], 1e6)
+                B = B.masked_fill(dead[:, :, None], -1e6)
+            rs = int(ranks.clamp(0, k).sum())
             isz = A.element_size()
             mask = (torch.arange(k, device=device)[None, :]
                     < ranks[:, None]).to(dtype)
@@ -356,6 +406,21 @@ def kernel_cases(torch, ranks_a, device="cuda"):
     T = ranks_a.shape[0]
     ragged = torch.randint(1, 25, (5,), generator=g, device=device,
                            dtype=torch.int32)
+    # ranks of the right path's batched_gemm calls (their own generator, so
+    # that the other cases keep their inputs): full rank at the flushes'
+    # densify (k = w_acc = 384) and truncation; L's ranks at the trailing
+    # SYRK (cov2d-8k-right: mean 8.19, max 39); ranks from -2 to k + 3 with
+    # garbage past them
+    gr = torch.Generator(device=device).manual_seed(1)
+
+    def full(T, k):
+        return torch.full((T,), k, device=device, dtype=torch.int32)
+    syrk = (-8.7 * torch.log(torch.rand((1953,), generator=gr, device=device,
+                                        dtype=torch.float64))).floor()
+    syrk = syrk.clamp(0, 39).to(torch.int32)
+    syrk[:2] = torch.tensor([39, 0], dtype=torch.int32)
+    wild = torch.randint(-2, 388, (100,), generator=gr, device=device,
+                         dtype=torch.int32)
     return [
         ("batched_gemm", f"sample T={T} m=512 k=128 n=16", True,
          bgemm(512, 128, 16, ranks_a)),
@@ -363,6 +428,18 @@ def kernel_cases(torch, ranks_a, device="cuda"):
          bgemm(512, 128, 128, ranks_a)),
         ("batched_gemm", "ragged T=5 m=96 k=24 n=20", False,
          bgemm(96, 24, 20, ragged)),
+        ("batched_gemm", "flush densify T=2016 m=128 k=384 n=128", False,
+         bgemm(128, 384, 128, full(2016, 384))),
+        ("batched_gemm", "truncation T=2016 m=128 k=128 n=128", False,
+         bgemm(128, 128, 128, full(2016, 128))),
+        ("batched_gemm", "SYRK T=1953 m=128 k=128 n=128 (L ranks)", False,
+         bgemm(128, 128, 128, syrk)),
+        ("batched_gemm", "op.round T=2016 m=512 k=128 n=128", False,
+         bgemm(512, 128, 128, full(2016, 128))),
+        ("batched_gemm", f"garbage tail T={T} m=512 k=128 n=16", False,
+         bgemm(512, 128, 16, ranks_a, garbage=True)),
+        ("batched_gemm", "garbage tail T=100 m=128 k=384 n=128 ranks -2..387",
+         False, bgemm(128, 384, 128, wild, garbage=True)),
         ("tile_chain", "W2 hoist T=30 b=512 r=128 s=16", False,
          chain(30, 512, 128, 16)),
         ("tile_chain", "sample_t T*J=1890 b=512 r=128 s=128", True,
@@ -575,6 +652,12 @@ def check_kernels(ranks_a, only=None) -> dict:
                                            1 if slow else 2)
                 rec["library_ms"] = event_ms(library, 1 if slow else reps,
                                              1 if slow else 2)
+                if name in MAIN_KERNELS and rec["ms"] < DISPATCH_MS:
+                    # back-to-back calls time the host's dispatch here:
+                    # replay them from a CUDA graph for the device time
+                    rec["graph_ms"] = graph_ms(kernel)
+                    rec["graph_plain_ms"] = graph_ms(plain)
+                    rec["graph_library_ms"] = graph_ms(library)
                 rec["bound_ms"] = 1e3 * max(nbytes / PEAK_BYTES,
                                             flops / PEAK_FLOPS[dn])
                 rec["bound_by"] = ("bytes" if nbytes / PEAK_BYTES
@@ -699,6 +782,7 @@ def svd_drivers(K, tile: int) -> None:
 def main_path(n: int, profile: str | None) -> dict:
     import torch
     from repro_torch import CholOptions, TLROperator, covariance_problem
+    from repro_torch.kernels import batched_gemm as bg
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import lr_sample as lr
 
@@ -731,6 +815,8 @@ def main_path(n: int, profile: str | None) -> dict:
     launches = ops.launch_counts()
     lr_shapes = sorted(lr.SHAPES.items(), reverse=True)
     log(f"launches on the main path: {json.dumps(launches)}")
+    log("batched_gemm launches per (T, m, k, n) on the main path: "
+        + shapes_line(bg.SHAPES))
     log("lr_sample launches per (T, J) on the main path: "
         + ", ".join(f"({t}, {j}) {c}" for (t, j), c in lr_shapes))
     # the source's j split at those shapes: groups of j per row tile (the
@@ -805,6 +891,7 @@ def rounding_phase(op, K, g, eps: float = 1e-6) -> dict:
     rank rose, and the rounded operator's matvec is within 1e-5 (relative)
     of the dense ``K x``."""
     import torch
+    from repro_torch.kernels import batched_gemm as bg
     from repro_torch.kernels import batched_qr as qr
     from repro_torch.kernels import ops
     from repro_torch.kernels import small_svd as svd
@@ -816,6 +903,8 @@ def rounding_phase(op, K, g, eps: float = 1e-6) -> dict:
         f"{shapes_line(svd.SHAPES)}")
     log(f"batched_qr launches per (T, b, r) on the round path: "
         f"{shapes_line(qr.SHAPES)}")
+    log(f"batched_gemm launches per (T, m, k, n) on the round path: "
+        f"{shapes_line(bg.SHAPES)}")
     r0, r1 = op.A.ranks, rop.A.ranks
     x = torch.randn((K.shape[0],), generator=g, device="cuda", dtype=K.dtype)
     y = K @ x
@@ -841,41 +930,110 @@ def shapes_line(shapes: dict) -> str:
                      sorted(shapes.items(), reverse=True))
 
 
+@contextlib.contextmanager
+def gemm_rank_log():
+    """While open, records every ``ops.batched_gemm`` call of the paths:
+    yields a dict (T, m, k, n) -> list of the calls' rank tensors (copied
+    on the card, no host sync). Only the smoke installs it, around the
+    right-looking driver, whose shapes ``shape_times`` then times at those
+    ranks."""
+    from repro_torch.kernels import ops
+    calls, inner = {}, ops.batched_gemm
+
+    def recording(A, B, ranks):
+        if ranks.numel():
+            calls.setdefault((*A.shape, B.shape[-1]), []).append(
+                ranks.clone())
+        return inner(A, B, ranks)
+    ops.batched_gemm = recording
+    try:
+        yield calls
+    finally:
+        ops.batched_gemm = inner
+
+
+def gemm_shapes(calls: dict) -> dict:
+    """(T, m, k, n) -> (launches, per-t mean live rank min(max(rank, 0), k)
+    over them) from a ``gemm_rank_log``."""
+    import torch
+    return {(T, m, k, n): (len(rs), torch.stack(rs).clamp(0, k).double()
+                           .mean(dim=0))
+            for (T, m, k, n), rs in calls.items()}
+
+
+def gemm_shapes_line(shapes: dict) -> str:
+    return ", ".join(
+        f"{shape} {c} (live rank mean {float(r.mean()):.2f}, max "
+        f"{float(r.max()):.0f})"
+        for shape, (c, r) in sorted(shapes.items(), reverse=True))
+
+
 def shape_times(name: str, shapes: dict, dtype_name: str = "float64"
                 ) -> float:
-    """Times ``small_svd`` (shapes (T, m, n)) or ``batched_qr`` ((T, b,
-    r)) at each shape a path launched it with (random inputs, the square
-    QR panels shifted by 3 I; CUDA events) and logs launches x kernel ms
-    against launches x bound ms per shape; returns the summed kernel
-    seconds, the path's time in that kernel as these shapes give it."""
+    """Times ``small_svd`` (shapes (T, m, n)), ``batched_qr`` ((T, b, r))
+    or ``batched_gemm`` ((T, m, k, n), from ``gemm_shapes``: at that
+    shape's per-t mean live ranks, rounded) at each shape a path launched it
+    with (random inputs, the square QR panels shifted by 3 I; CUDA events,
+    and a CUDA graph too under DISPATCH_MS) and logs launches x kernel ms
+    against launches x bound ms per shape (``batched_gemm`` also its
+    library call, ``torch.einsum`` of the masked product); returns the
+    summed kernel seconds (the graph's time where taken), the path's time
+    in that kernel as these shapes give it."""
     import torch
+    from repro_torch.kernels import batched_gemm as bg
     from repro_torch.kernels import batched_qr as qr
     from repro_torch.kernels import small_svd as svd
     dtype = getattr(torch, dtype_name)
     g = torch.Generator(device="cuda").manual_seed(3)
     total_ms = total_bound = 0.0
-    for (T, m, n), count in sorted(shapes.items(), reverse=True):
-        X = torch.randn((T, m, n), generator=g, device="cuda",
+    for shape, count in sorted(shapes.items(), reverse=True):
+        T, m, n = shape[0], shape[1], shape[-1]
+        X = torch.randn((T, m, shape[2]), generator=g, device="cuda",
                         dtype=torch.float64) / math.sqrt(m)
-        if name == "small_svd":
-            call = svd.small_svd_cuda
+        if name == "batched_qr" and m == n:
+            X += 3.0 * torch.eye(m, device="cuda", dtype=X.dtype)
+        X = X.to(dtype)
+        library, note = None, ""
+        if name == "batched_gemm":
+            count, mean = count
+            k = shape[2]
+            B = (torch.randn((T, k, n), generator=g, device="cuda",
+                             dtype=torch.float64) / math.sqrt(k)).to(dtype)
+            ranks = mean.round().to(torch.int32)
+            mask = (torch.arange(k, device="cuda")[None, :]
+                    < ranks[:, None]).to(dtype)
+            rs = int(ranks.clamp(0, k).sum())
+            call = functools.partial(bg.batched_gemm_cuda, X, B, ranks)
+            library = functools.partial(torch.einsum, "tmk,tk,tkn->tmn", X,
+                                        mask, B)
+            flops = 2.0 * m * n * rs
+            words = m * rs + n * rs + T * m * n
+            note = f", live rank mean {rs / T:.2f}"
+        elif name == "small_svd":
+            call = functools.partial(svd.small_svd_cuda, X)
             flops = 8.0 * T * n * (n - 1) / 2 * (12 * m + 6 * n)
             words = 2 * T * m * n + T * n + T * n * n
         else:
-            if m == n:
-                X += 3.0 * torch.eye(m, device="cuda", dtype=X.dtype)
-            call = qr.batched_qr_cuda
+            call = functools.partial(qr.batched_qr_cuda, X)
             flops = 6.0 * T * m * n * n
             words = 2 * T * m * n + T * n * n
-        X = X.to(dtype)
-        ms = event_ms(lambda: call(X), 3 if T > 500 else 10)
+        reps = 3 if T > 500 else 10
+        ms = event_ms(call, reps)
+        timing = f"{ms:.4f} ms"
+        if library is not None:
+            note += f"; library {event_ms(library, reps):.4f} ms"
+        if ms < DISPATCH_MS:
+            ms = graph_ms(call)
+            timing += f" by events, {ms:.4f} ms by graph"
+            if library is not None:
+                note += f", {graph_ms(library):.4f} ms by graph"
         bound = 1e3 * max(words * X.element_size() / PEAK_BYTES,
                           flops / PEAK_FLOPS[dtype_name])
         total_ms += count * ms
         total_bound += count * bound
-        log(f"  {name} ({T}, {m}, {n}) {dtype_name}: {count} launches x "
-            f"{ms:.4f} ms = {count * ms:.1f} ms (bound {bound:.4f} ms, x "
-            f"{count} = {count * bound:.1f} ms)")
+        log(f"  {name} {shape} {dtype_name}: {count} launches x {timing} = "
+            f"{count * ms:.1f} ms (bound {bound:.4f} ms, x {count} = "
+            f"{count * bound:.1f} ms{note})")
         del X
     log(f"  {name} all shapes: {total_ms:.1f} ms (bound "
         f"{total_bound:.1f} ms)")
@@ -887,9 +1045,9 @@ def right_phase(n: int, profile: str | None) -> dict:
     1e-8 with r_max 128, factored by the right-looking driver (Cholesky,
     then LDL^T, flat batching). Gates per factorization: the QR, SVD and
     GEMM kernels ran, the randomized residual ``||K z - L D L^T z|| /
-    ||K z|| <= 100 eps`` holds and a solve is finite. Logs ``small_svd``'s
-    and ``batched_qr``'s launches per shape and, after both, their times
-    per shape."""
+    ||K z|| <= 100 eps`` holds and a solve is finite. Logs ``small_svd``'s,
+    ``batched_qr``'s and ``batched_gemm``'s launches per shape and, after
+    both, their times per shape."""
     import torch
     from repro_torch import CholOptions, TLROperator, covariance_problem
     from repro_torch.kernels import batched_qr as qr
@@ -913,12 +1071,14 @@ def right_phase(n: int, profile: str | None) -> dict:
     for kind in ("cholesky", "ldlt"):
         opts = CholOptions(eps=eps, algo="right", batching="flat")
         ops.reset_launch_counts()
-        fact, sec = timed(lambda: getattr(op, kind)(opts),
-                          profile if kind == "cholesky" else None,
-                          "right_cholesky")
+        with gemm_rank_log() as gemm_calls:
+            fact, sec = timed(lambda: getattr(op, kind)(opts),
+                              profile if kind == "cholesky" else None,
+                              "right_cholesky")
         launches = ops.launch_counts()
         shapes = {"small_svd": dict(svd.SHAPES),
-                  "batched_qr": dict(qr.SHAPES)}
+                  "batched_qr": dict(qr.SHAPES),
+                  "batched_gemm": gemm_shapes(gemm_calls)}
         LtZ = fact.tri_matvec(Z, trans=True)
         if fact.d is not None:
             LtZ = LtZ * fact.d.reshape(-1, 1)
@@ -945,13 +1105,15 @@ def right_phase(n: int, profile: str | None) -> dict:
         log(f"right {kind}: small_svd launches per (T, m, n): "
             f"{shapes_line(shapes['small_svd'])}; batched_qr per (T, b, r): "
             f"{shapes_line(shapes['batched_qr'])}")
-        del fact, LtZ, x
+        log(f"right {kind}: batched_gemm launches per (T, m, k, n): "
+            f"{gemm_shapes_line(shapes['batched_gemm'])}")
+        del fact, LtZ, x, gemm_calls
     log(f"right phase max_memory_allocated: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del op, K, KZ, Z
     torch.cuda.empty_cache()
     for kind in ("cholesky", "ldlt"):
-        for name in ("small_svd", "batched_qr"):
+        for name in ("small_svd", "batched_qr", "batched_gemm"):
             log(f"right {kind}: {name} per shape (f64, timed apart from "
                 f"the path):")
             sec = shape_times(name, out[f"right_{kind}_shapes"][name])
@@ -1005,6 +1167,10 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+            # device time of a headline under DISPATCH_MS (CUDA graph of
+            # GRAPH_CALLS calls, inputs warm in L2)
+            **{k: head[k] for k in ("graph_ms", "graph_plain_ms",
+                                    "graph_library_ms") if k in head},
             "shape": head["shape"], "dtype": "float64",
             "checked": sorted({f"{lbl} {d}" for (k, lbl, d) in results
                                if k == name}),

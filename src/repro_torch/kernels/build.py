@@ -35,7 +35,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argtypes of every exported entry point, one per (kernel, dtype suffix).
 _SIGNATURES = {
-    "batched_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "batched_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tile_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "lr_sample": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "batched_qr": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -54,7 +54,8 @@ DTYPES.update(batched_qr=(torch.float64, torch.float32),
 # shapes (-1: none fits); "workspace", the words of device workspace a call
 # needs (lr_sample's partial sums over groups of j, small_svd's rotation
 # logs or working matrices).
-QUERIES = {"batched_qr": {"scratch": (ctypes.c_longlong, 2),
+QUERIES = {"batched_gemm": {"config": (ctypes.c_int, 1)},
+           "batched_qr": {"scratch": (ctypes.c_longlong, 2),
                           "config": (ctypes.c_int, 2)},
            "small_svd": {"workspace": (ctypes.c_longlong, 4)},
            "tile_chain": {"config": (ctypes.c_int, 2)},

@@ -48,6 +48,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.LAUNCHES = 0
+    _bg.SHAPES.clear()
     _lr.SHAPES.clear()
     _qr.SHAPES.clear()
     _svd.SHAPES.clear()

@@ -8,9 +8,10 @@ so it runs on a machine without JAX:
 Tolerances as in tests/test_kernels.py (f64 1e-12, f32 1e-5, bf16 5e-2,
 bf16 accumulating in f32), relative to the largest |plain output|; each
 check must also reject a planted fault (one rank or one j term dropped).
-The f64 paths of ``tile_chain`` with s > 16 and of ``lr_sample`` have
-their own ragged cases: the tensor-core kernels (r <= 128) and the FMA
-kernels past them.
+The f64 paths of ``tile_chain`` with s > 16, of ``lr_sample`` and of
+``batched_gemm`` have their own ragged cases: the tensor-core kernels (r <=
+128) and the FMA kernels past them; ``batched_gemm`` also with garbage past
+each rank, bitwise repeats and its configuration by shape.
 The rounding kernels run in f64 and f32: ``batched_qr`` is held to the
 same gate on Q and R, ``small_svd`` to ten times it on the sorted singular
 values and on the reconstruction ``U diag(s) V^T`` (its U and V columns of
@@ -275,6 +276,121 @@ def test_cuda_lr_sample_f64_eight_byte_copies(cuda_device, ldr, w2_offset):
     atol = 1e-12 * float(want.abs().max())
     assert float((got - want).abs().max()) <= atol
     assert float((fault - want).abs().max()) > atol
+
+
+# batched_gemm's shapes on the ported paths, (T, m, k, n): the left
+# factorization's sample and sample_t, the right driver's flush densify and
+# truncation and its trailing SYRK.
+GEMM_SHAPES = {"sample": (63, 512, 128, 16), "sample_t": (63, 512, 128, 128),
+               "flush densify": (2016, 128, 384, 128),
+               "truncation": (2016, 128, 128, 128),
+               "SYRK": (1953, 128, 128, 128)}
+GEMM_TOL = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 5e-2}
+
+
+def _gemm_inputs(T, m, k, n, ranks, dtype, device, seed, offset=0):
+    """A (T, m, k) and B (T, k, n), B scaled by 1/sqrt(k), with +-1e6 in A's
+    columns and B's rows past each rank (the kernel must never read them);
+    ``offset`` starts both one element past a 16-byte boundary."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        x = torch.randn(shape[0] * shape[1] * shape[2] + offset, generator=g,
+                        device=device, dtype=torch.float64)
+        return x[offset:].view(shape)
+
+    dead = torch.arange(k, device=device)[None, :] >= ranks[:, None]
+    A = rnd(T, m, k).masked_fill_(dead[:, None, :], 1e6)
+    B = rnd(T, k, n).div_(k ** 0.5).masked_fill_(dead[:, :, None], -1e6)
+    if dtype != torch.float64:
+        A, B = A.to(dtype), B.to(dtype)
+    return A, B
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(GEMM_SHAPES))
+def test_cuda_batched_gemm_config_by_shape(cuda_device, shape, dtype):
+    """batched_gemm's configuration comes from the dtype and n alone, as
+    csrc/batched_gemm.cu decides before any launch: the f64 tensor-core
+    kernel (16-wide tiles for n <= 16, 128-wide otherwise) at every shape
+    of the ported paths, the FMA kernel in f32 and bf16."""
+    n = GEMM_SHAPES[shape][3]
+    want = {torch.float64: (tbg.DMMA_NARROW, tbg.DMMA_WIDE)}.get(
+        dtype, (tbg.NARROW, tbg.WIDE))[n > 16]
+    assert tbg._config(dtype, n) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("T,m,k,n", [
+    (4, 40, 27, 20),     # odd k: 8-byte copies; ragged m and n
+    (5, 96, 24, 20),
+    (3, 200, 128, 16),   # narrow tiles, two 128-row chunks
+    (3, 33, 17, 5),      # narrow tiles, odd k and n
+    (3, 130, 384, 128),  # the flush densify's depth, a ragged row chunk
+    (2, 128, 128, 129),  # two column chunks, odd n
+    (2, 300, 40, 136),
+])
+def test_cuda_batched_gemm_masked_ranks(cuda_device, T, m, k, n, dtype):
+    """On the card, small T: batched_gemm against its plain version on
+    ragged shapes with garbage (+-1e6) past each rank and ranks 0, k, above
+    k, negative and between; a rank-0 tile gives exact zeros, the gate
+    rejects one rank dropped, and two calls are bitwise equal."""
+    ranks = torch.tensor([0, k, k + 5, -3, k // 2 + 1][:T] + [0] * (T - 5),
+                         dtype=torch.int32, device=cuda_device)
+    A, B = _gemm_inputs(T, m, k, n, ranks, dtype, cuda_device, 7)
+    ops.reset_launch_counts()
+    got = ops.batched_gemm(A, B, ranks)
+    want = tbg.batched_gemm_plain(A, B, ranks)
+    fault = tbg.batched_gemm_plain(A, B, (ranks - 1).clamp(min=0))
+    atol = GEMM_TOL[dtype] * float(want.double().abs().max())
+    assert float((got.double() - want.double()).abs().max()) <= atol
+    assert float((fault.double() - want.double()).abs().max()) > atol
+    assert (got[ranks <= 0] == 0).all()
+    assert torch.equal(tbg.batched_gemm_cuda(A, B, ranks), got)
+    assert ops.launch_counts()["batched_gemm"] == 2
+    assert tbg.SHAPES == {(T, m, k, n): 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["sample", "flush densify"])
+def test_cuda_batched_gemm_f64_eight_byte_copies(cuda_device, shape):
+    """The tensor-core paths with 8-byte copies: A and B one element past a
+    16-byte boundary, at a path's shape (T cut to 5)."""
+    _, m, k, n = GEMM_SHAPES[shape]
+    ranks = torch.tensor([k, 1, 13, 0, k - 1], dtype=torch.int32,
+                         device=cuda_device)
+    A, B = _gemm_inputs(5, m, k, n, ranks, torch.float64, cuda_device, 8,
+                        offset=1)
+    assert A.data_ptr() % 16 == 8 and B.data_ptr() % 16 == 8
+    got = tbg.batched_gemm_cuda(A, B, ranks)
+    want = tbg.batched_gemm_plain(A, B, ranks)
+    atol = 1e-12 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= atol
+    assert torch.equal(tbg.batched_gemm_cuda(A, B, ranks), got)
+
+
+@pytest.mark.gpu
+def test_cuda_batched_gemm_rejects_a_mismatched_config(cuda_device):
+    """A launch with another configuration than the source's for its dtype
+    and n is refused: the FMA kernels in f64, the tensor-core kernel of the
+    other width, or any tensor-core kernel in f32."""
+    x = torch.zeros((1, 32, 32), device=cuda_device, dtype=torch.float64)
+    r = torch.ones(1, device=cuda_device, dtype=torch.int32)
+    fn = build.entry("batched_gemm", torch.float64)
+    for n, cfg in ((32, tbg.WIDE), (32, tbg.DMMA_NARROW), (16, tbg.NARROW),
+                   (16, tbg.DMMA_WIDE)):
+        assert fn(x.data_ptr(), x.data_ptr(), r.data_ptr(), x.data_ptr(),
+                  1, 32, 32, n, cfg, build.stream_handle(x)) != 0
+    x32 = x.float()
+    fn = build.entry("batched_gemm", torch.float32)
+    assert fn(x32.data_ptr(), x32.data_ptr(), r.data_ptr(), x32.data_ptr(),
+              1, 32, 32, 32, tbg.DMMA_WIDE, build.stream_handle(x32)) != 0
+    assert fn(x32.data_ptr(), x32.data_ptr(), r.data_ptr(), x32.data_ptr(),
+              1, 32, 32, 32, tbg.WIDE, build.stream_handle(x32)) == 0
 
 
 @pytest.mark.gpu

@@ -98,16 +98,31 @@ def test_lr_sample_k_zero_and_width():
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64, jnp.bfloat16])
-@pytest.mark.parametrize("T,m,k,n", [
-    (1, 16, 8, 16),
-    (4, 64, 32, 8),
-    (3, 128, 64, 128),
+@pytest.mark.parametrize("T,m,k,n,ranks_kind", [
+    pytest.param(1, 16, 8, 16, "random", id="1-16-8-16"),
+    pytest.param(4, 64, 32, 8, "random", id="4-64-32-8"),
+    pytest.param(3, 128, 64, 128, "random", id="3-128-64-128"),
+    pytest.param(2, 40, 27, 20, "garbage", id="2-40-27-20-garbage"),
+    pytest.param(5, 24, 17, 9, "garbage", id="5-24-17-9-garbage"),
+    pytest.param(4, 40, 27, 20, "edges", id="4-40-27-20-edges"),
+    pytest.param(4, 128, 64, 128, "edges", id="4-128-64-128-edges"),
 ])
-def test_batched_gemm_plain_matches_jax(T, m, k, n, dtype):
+def test_batched_gemm_plain_matches_jax(T, m, k, n, ranks_kind, dtype):
+    """Random ranks in [0, k]; with "garbage", +-1e6 in A's columns and B's
+    rows past each rank; "edges": ranks 0, k, above k and negative (none),
+    garbage past them. m, k and n need not be multiples of 8 or 16."""
     ks = jax.random.split(jax.random.PRNGKey(1), 2)
     A = _rand(ks[0], (T, m, k), dtype)
     B = _rand(ks[1], (T, k, n), dtype)
-    ranks = np.random.default_rng(0).integers(0, k + 1, T).astype(np.int32)
+    if ranks_kind == "edges":
+        ranks = np.resize(np.array([0, k, k + 3, -2], np.int32), T)
+    else:
+        ranks = np.random.default_rng(0).integers(0, k + 1, T).astype(
+            np.int32)
+    if ranks_kind != "random":
+        dead = jnp.arange(k)[None, :] >= jnp.asarray(ranks)[:, None]
+        A = jnp.where(dead[:, None, :], 1e6, A).astype(dtype)
+        B = jnp.where(dead[:, :, None], -1e6, B).astype(dtype)
     got = ops.batched_gemm(_t(A, dtype), _t(B, dtype), torch.from_numpy(ranks))
     assert got.dtype == TORCH_DTYPE[dtype]
     tol = TOL[dtype]
