@@ -2,25 +2,31 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then
-drives three paths, each with the kernels' launch counts set to 0 just
+drives these paths, each with the kernels' launch counts set to 0 just
 before it and read just after:
 
 1. the main path at full width: a 2-D exponential covariance (N = 32768,
    tile 512) built on the card, ``TLROperator.compress`` (batched SVD, no
-   rank may reach r_max) -> ``cholesky`` (left-looking dynamic ARA) ->
-   solve / logdet / sample / matvec, gated on the randomized factor
-   residual ``||K z - L (L^T z)|| / ||K z|| <= 100 eps``; it also times the
-   batched SVD of one tile column by each cuSOLVER driver;
-2. the rounding pass on the same operator: ``op.round(1e-6)`` (batched QR
-   of the factors, SVD of the cores), gated on no rank rising and the
-   rounded matvec within 1e-5 of ``K x``;
+   rank may reach r_max) -> ``cholesky`` (left-looking dynamic ARA, the
+   default ``batching="auto"``, whose decision it logs) -> solve / logdet
+   / sample / matvec, gated on the randomized factor residual
+   ``||K z - L (L^T z)|| / ||K z|| <= 100 eps``; then the same compressed
+   operator factored with the other ``batching`` value under the same
+   gate, so that flat and rank-bucketed batching both run (each logs its
+   ranks, the gather widths wA / wL and projection widths wQ of the ranked
+   run, and its launches per shape); it also times the batched SVD of one
+   tile column by each cuSOLVER driver;
+2. the rounding pass on the same operator: ``op.round(1e-6)`` flat and
+   ranked (batched QR of the factors, SVD of the cores; per rank bucket
+   when ranked), each gated on no rank rising and the rounded matvec
+   within 1e-5 of ``K x``;
 3. the right-looking driver: the same covariance at N = 8192, tile 128,
-   ``cholesky`` and ``ldlt`` with ``algo="right"``, gated on the same
-   residual and finite solves; it logs ``small_svd``'s launches per
-   (T, m, n), ``batched_qr``'s per (T, b, r) and ``batched_gemm``'s per
-   (T, m, k, n) with their mean live rank and, timed apart, launches x
-   kernel ms against the bound per shape (the main and round paths log
-   their launches per shape too).
+   ``cholesky`` and ``ldlt`` with ``algo="right"``, flat and ranked,
+   gated on the same residual and finite solves; it logs flushes, append
+   widths, peak memory, ``small_svd``'s launches per (T, m, n),
+   ``batched_qr``'s per (T, b, r) and ``batched_gemm``'s per (T, m, k, n)
+   with their mean live rank and, timed apart, launches x kernel ms
+   against the bound per shape.
 
 Then it holds each kernel against its plain PyTorch version on the card
 (f64, f32 and bf16; f64 and f32 for the QR and SVD) at the paths' shapes
@@ -32,7 +38,10 @@ spectrum whose unsorted factors must match the plain version's rotations,
 ``batched_qr`` on graded tiles like the right driver's densified ones under
 the QR contract), checks that each gate rejects a planted fault and that
 two kernel calls agree bit for bit, and checks a small end-to-end run on
-the card against the same run on the CPU. Kernel times are CUDA events
+the card against the same run on the CPU (flat and ranked). The kernels
+are also held at the rank-bucket widths of ranked batching (width 1 to
+128, zero-tile count padding) and at each kernel's widest bucket on its
+ranked path. Kernel times are CUDA events
 over back-to-back calls; a sampling kernel's case under DISPATCH_MS is
 also timed from a CUDA graph (``graph_ms`` and its kin beside ``ms``),
 since the host's dispatch sets the pace of back-to-back calls there.
@@ -49,6 +58,7 @@ checkout. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import functools
 import json
@@ -121,6 +131,9 @@ SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
 # (src/repro_torch/core/buckets.py; tests/test_torch_kernels.py checks it).
 LR_BUCKETS = ((63, 30), (32, 46), (16, 54), (8, 58), (4, 60), (2, 61),
               (1, 62))
+# Label prefix of the kernel cases at the widest rank bucket a ranked path
+# gave each kernel (``widest_bucket``).
+RANKED_HEAD = "ranked widest bucket"
 
 
 def log(msg: str) -> None:
@@ -220,7 +233,7 @@ def build_kernels() -> None:
 # -- phase 3: kernels against their plain versions ------------------------------------
 
 
-def kernel_cases(torch, ranks_a, device="cuda"):
+def kernel_cases(torch, ranks_a, device="cuda", ranked=None):
     """(name, shape label, headline, make(dtype) -> (kernel, plain, fault,
     library, bytes_needed, flops_needed, post[, gate])) at the paths' shapes
     (``CASE_ATOL`` gives some cases an absolute tolerance; a case with its
@@ -247,7 +260,19 @@ def kernel_cases(torch, ranks_a, device="cuda"):
     raw result to the outputs that are gated (None: the result itself);
     timing runs the raw calls. ``headline`` marks the shape that takes most
     of the kernel's time on its path; its numbers go into the kernels
-    line."""
+    line.
+
+    Ranked batching runs every kernel at rank-bucket widths: ``lr_sample``
+    and ``tile_chain`` at the left driver's gather widths (1 to 128, the
+    factors gathered at that width, so an odd width is an odd row stride),
+    ``batched_qr`` at (bucket count, b, w), ``small_svd`` at (count, w, w)
+    (no rotation at all for w = 1), ``batched_gemm`` at k = w; a bucket's
+    count is padded with all-zero tiles, which must come out at rank 0 with
+    no NaN. ``ranked`` maps a kernel to a list of ``(path, shape, ranks)``,
+    the widest-bucket shape each ranked path gave it (``widest_bucket``),
+    with ``batched_gemm``'s live ranks there (None: full rank): such a
+    case's label starts with ``RANKED_HEAD`` and its times go into the
+    kernels line beside the headline's."""
     g = torch.Generator(device=device).manual_seed(0)
     from repro_torch.kernels import batched_gemm as bg
     from repro_torch.kernels import batched_qr as qr
@@ -324,14 +349,17 @@ def kernel_cases(torch, ranks_a, device="cuda"):
                     4.0 * T * k * b * w * s, None)
         return make
 
-    def mgs(T, b, r, shift=0.0, dead=False):
+    def mgs(T, b, r, shift=0.0, dead=False, zero_tail=0):
         # MGS2 with R = Q^T Y: 2 sweeps x 2 b r^2 + 2 b r^2 = 6 b r^2 a tile.
+        # zero_tail: the last tiles all zero, as a rank bucket's count padding
         def make(dtype):
             Y = randn((T, b, r), torch.float64, 1 / math.sqrt(b))
             if shift:
                 Y += shift * torch.eye(b, r, device=device, dtype=Y.dtype)
             if dead:
                 Y[0, :, 3] = 2.0 * Y[0, :, 1] - Y[0, :, 0]
+            if zero_tail:
+                Y[T - zero_tail:] = 0.0
             Y = Y.to(dtype)
             Yf = Y.clone()
             Yf[:, :, -1] = 0.0
@@ -362,11 +390,17 @@ def kernel_cases(torch, ranks_a, device="cuda"):
                         str(dtype).removeprefix("torch.")]))
         return make
 
-    def jacobi(T, m, n):
+    def jacobi(T, m, n, zero_tail=0):
         # 8 sweeps of n(n-1)/2 rotations at 12 m + 6 n FLOPs each, skipped
         # rotations included (the Pallas kernel does their arithmetic too).
+        # For n <= 2 one sweep already converges, so the planted fault drops
+        # the last column instead. zero_tail: the last tiles all zero.
         def make(dtype):
             M = randn((T, m, n), dtype, 1 / math.sqrt(m))
+            if zero_tail:
+                M[T - zero_tail:] = 0.0
+            Mf = M.clone()
+            Mf[:, :, -1] = 0.0
             isz = M.element_size()
 
             def post(out):
@@ -375,7 +409,8 @@ def kernel_cases(torch, ranks_a, device="cuda"):
                         (U * s[:, None, :]) @ V.transpose(1, 2))
             return (lambda: svd.small_svd_cuda(M),
                     lambda: svd.small_svd_plain(M),
-                    lambda: svd.small_svd_plain(M, sweeps=1),
+                    (lambda: svd.small_svd_plain(Mf)) if n <= 2 else
+                    (lambda: svd.small_svd_plain(M, sweeps=1)),
                     lambda: torch.linalg.svd(M, full_matrices=False),
                     (2 * T * m * n + T * n + T * n * n) * isz,
                     8.0 * T * n * (n - 1) / 2 * (12 * m + 6 * n), post)
@@ -402,6 +437,35 @@ def kernel_cases(torch, ranks_a, device="cuda"):
                     (2 * T * n * n + T * n + T * n * n) * isz,
                     8.0 * T * n * (n - 1) / 2 * (18 * n), post)
         return make
+
+    def ranked_cases(shapes):
+        """The widest-bucket case of each kernel on each ranked path."""
+        out = []
+        for name, path, shape, ranks in sorted(
+                (name, *case) for name, cases in shapes.items()
+                for case in cases):
+            label = f"{RANKED_HEAD} on {path} {shape}"
+            if ranks is not None:
+                label += (f" live ranks {int(ranks.min())}.."
+                          f"{int(ranks.max())}")
+            if name == "lr_sample":
+                Tr, J, r = shape
+                out.append((name, label, False, lrs(Tr, J, TILE, r, 16)))
+            elif name == "tile_chain":
+                Tr, b, r, sc = shape
+                out.append((name, label, False, chain(Tr, b, r, sc)))
+            elif name == "batched_gemm":
+                Tr, m, k, n = shape
+                out.append((name, label, False, bgemm(
+                    m, k, n, full(Tr, k) if ranks is None else ranks)))
+            elif name == "batched_qr":
+                Tr, b, r = shape
+                out.append((name, label, False,
+                            mgs(Tr, b, r, shift=3.0 if b == r else 0.0)))
+            else:
+                Tr, m, n = shape
+                out.append((name, label, False, jacobi(Tr, m, n)))
+        return out
 
     T = ranks_a.shape[0]
     ragged = torch.randint(1, 25, (5,), generator=g, device=device,
@@ -481,6 +545,32 @@ def kernel_cases(torch, ranks_a, device="cuda"):
         ("small_svd", SAME_ROTATIONS, False, same_rotations(4, 128)),
         ("small_svd", "ragged T=3 m=20 n=13", False, jacobi(3, 20, 13)),
         ("small_svd", "scratch T=2 m=300 n=200", False, jacobi(2, 300, 200)),
+        # rank-bucket widths (ranked batching)
+        *[("lr_sample", f"bucket T=63 J=30 b=512 r={w} s=16", False,
+           lrs(63, 30, 512, w, 16)) for w in (1, 8, 32)],
+        *[("tile_chain", f"bucket T*J=1890 b=512 r={w} s=128", False,
+           chain(1890, 512, w, 128)) for w in (2, 16)],
+        ("tile_chain", "odd stride T=63 b=512 ldr=5 width=3 s=128", False,
+         chain(63, 512, 5, 128, width=3)),
+        *[("batched_qr", f"bucket T=64 b={b} r={w}", False, mgs(64, b, w))
+          for b in (128, 512) for w in (1, 4, 32)],
+        ("batched_qr", "bucket T=64 b=128 r=4, 21 zero tiles", False,
+         mgs(64, 128, 4, zero_tail=21)),
+        *[("small_svd", f"bucket core T=64 m={w} n={w}", False,
+           jacobi(64, w, w)) for w in (1, 2, 8, 64)],
+        ("small_svd", "bucket core T=64 m=4 n=4, 21 zero tiles", False,
+         jacobi(64, 4, 4, zero_tail=21)),
+        *[("batched_gemm", f"bucket truncation T=64 m=128 k={w} n={w}", False,
+           bgemm(128, w, w, full(64, w))) for w in (1, 4, 32)],
+        ("batched_gemm", "bucket core T=64 m=2 k=2 n=2", False,
+         bgemm(2, 2, 2, full(64, 2))),
+        ("batched_gemm", "bucket densify T=64 m=128 k=256 n=128 ranks 129..256",
+         False, bgemm(128, 256, 128, torch.randint(
+             129, 257, (64,), generator=gr, device=device,
+             dtype=torch.int32))),
+        *[("batched_gemm", f"A-term T=63 m=512 k={w} n=16", False,
+           bgemm(512, w, 16, ranks_a.clamp(max=w))) for w in (1, 4)],
+        *ranked_cases(ranked or {}),
     ]
 
 
@@ -598,14 +688,15 @@ def bitwise_equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def check_kernels(ranks_a, only=None) -> dict:
+def check_kernels(ranks_a, only=None, ranked=None) -> dict:
     """Every case of ``kernel_cases`` (those of the kernels named in
-    ``only``, if given): gate, planted fault, two calls bitwise equal, and
-    timings."""
+    ``only``, if given; ``ranked`` as ``kernel_cases`` takes it): gate,
+    planted fault, two calls bitwise equal, and timings."""
     import torch
     all_dtypes = (torch.float64, torch.float32, torch.bfloat16)
     results = {}
-    for name, label, headline, make in kernel_cases(torch, ranks_a):
+    for name, label, headline, make in kernel_cases(torch, ranks_a,
+                                                     ranked=ranked):
         if only is not None and name not in only:
             continue
         for dtype in (all_dtypes[:2] if name in ("batched_qr", "small_svd")
@@ -641,7 +732,8 @@ def check_kernels(ranks_a, only=None) -> dict:
                 # columns whose sign the kernel and the plain version differ in
                 rec["sign_flips"] = int((svd_column_signs(got[2]) !=
                                          svd_column_signs(raw[2])).sum())
-            if dtype == torch.float64 or headline:
+            if dtype == torch.float64 or headline or \
+                    label.startswith(RANKED_HEAD):
                 # the plain SVD is ~3000 small launches and cuSOLVER's SVD
                 # loops over the batch: time the costly calls once, after
                 # one warm call (cuSOLVER's first call sets up its handle)
@@ -685,6 +777,9 @@ def check_kernels(ranks_a, only=None) -> dict:
 
 
 def small_parity() -> None:
+    """The same factorization on the card and on the CPU (n = 2048, tile
+    256), with flat and with ranked batching: equal ranks, factors and
+    solves within 1e-8."""
     import torch
     from repro_torch import CholOptions, TLROperator, covariance_problem
     from repro_torch.convert import operator_from_numpy
@@ -694,22 +789,25 @@ def small_parity() -> None:
     op_gpu = TLROperator.compress(K, tile, r_max=128, eps=1e-8)
     op_cpu = operator_from_numpy(*(t.cpu().numpy() for t in (
         op_gpu.A.D, op_gpu.A.U, op_gpu.A.V, op_gpu.A.ranks)), device="cpu")
-    opts = CholOptions(eps=eps, bs=16, mode="dynamic", batching="flat")
-    f_gpu = op_gpu.cholesky(opts)
-    f_cpu = op_cpu.cholesky(opts)
-    rg, rc = f_gpu.L.ranks.cpu(), f_cpu.L.ranks
-    assert torch.equal(rg, rc), f"ranks differ in {(rg != rc).sum()} tiles"
-    Lg = torch.tril(f_gpu.L.to_dense().cpu())
-    Lc = torch.tril(f_cpu.L.to_dense())
-    rel = float((Lg - Lc).norm() / Lc.norm())
     y = torch.randn((n, 4), generator=torch.Generator().manual_seed(1),
                     dtype=torch.float64)
-    xg, xc = f_gpu.solve(y.cuda()).cpu(), f_cpu.solve(y)
-    rel_x = float((xg - xc).norm() / xc.norm())
-    log(f"small parity n={n} tile={tile}: ranks equal, "
-        f"||L_gpu - L_cpu||/||L_cpu|| = {rel:.3e}, solve rel diff "
-        f"{rel_x:.3e}")
-    assert rel <= 1e-8 and rel_x <= 1e-8, "card and CPU runs disagree"
+    for batching in ("flat", "ranked"):
+        opts = CholOptions(eps=eps, bs=16, mode="dynamic", batching=batching)
+        f_gpu = op_gpu.cholesky(opts)
+        f_cpu = op_cpu.cholesky(opts)
+        rg, rc = f_gpu.L.ranks.cpu(), f_cpu.L.ranks
+        assert torch.equal(rg, rc), \
+            f"{batching}: ranks differ in {(rg != rc).sum()} tiles"
+        Lg = torch.tril(f_gpu.L.to_dense().cpu())
+        Lc = torch.tril(f_cpu.L.to_dense())
+        rel = float((Lg - Lc).norm() / Lc.norm())
+        xg, xc = f_gpu.solve(y.cuda()).cpu(), f_cpu.solve(y)
+        rel_x = float((xg - xc).norm() / xc.norm())
+        log(f"small parity n={n} tile={tile} batching={batching}: ranks "
+            f"equal, ||L_gpu - L_cpu||/||L_cpu|| = {rel:.3e}, solve rel "
+            f"diff {rel_x:.3e}")
+        assert rel <= 1e-8 and rel_x <= 1e-8, \
+            f"{batching}: card and CPU runs disagree"
 
 
 # -- phase 5: the main path at full width --------------------------------------------------
@@ -779,12 +877,63 @@ def svd_drivers(K, tile: int) -> None:
         del U, s, Vh
 
 
+def path_shapes() -> dict:
+    """Launches per shape of each kernel since the last reset."""
+    from repro_torch.kernels import ops
+    return {name: dict(mod.SHAPES) for name, mod in ops.KERNELS.items()}
+
+
+def widest_bucket(shapes: dict, width_axis: int = 2):
+    """The shape of ``shapes`` (launches per shape) at the widest rank
+    bucket, the largest batch among those; None if there is none."""
+    if not shapes:
+        return None
+    return max(shapes, key=lambda sh: (sh[width_axis], sh[-1], sh[0]))
+
+
+def left_summary(fact, label: str, r_max: int) -> None:
+    """Logs a left-looking factorization's batching decision, ranks and
+    widths: the policy record, wA, the wL ladder the driver reached and
+    each column's projection width wQ."""
+    st = fact.stats
+    rl = fact.L.ranks.float()
+    ev = st["column_events"]
+    ladder = []
+    for e in ev:
+        if e["wL"] is not None and (not ladder or ladder[-1] != e["wL"]):
+            ladder.append(e["wL"])
+    log(f"{label}: batching {st['batching']}, policy "
+        f"{json.dumps(st['policy'])}")
+    log(f"{label}: L ranks max {int(rl.max())} mean {float(rl.mean()):.2f} "
+        f"(r_max {r_max}); wA {ev[0]['wA'] if ev else None}, wL ladder {ladder or None}, wQ "
+        f"per column {[e['wQ'] for e in ev] if ladder else None}; "
+        f"{sum(st['column_iters'])} ARA block iterations over "
+        f"{len(st['column_iters'])} columns, modified_chol "
+        f"{st['modified_chol']}, safety_valve {st['safety_valve']}, stage "
+        f"seconds {json.dumps({k: round(v, 3) for k, v in st['schedule']['kind_seconds'].items()})}")
+
+
+def log_shapes(label: str, shapes: dict) -> None:
+    for name in ("lr_sample", "tile_chain", "batched_gemm", "batched_qr",
+                 "small_svd"):
+        if shapes.get(name):
+            log(f"{label}: {name} launches per shape: "
+                f"{shapes_line(shapes[name])}")
+
+
+def left_residual(K, fact, Z) -> float:
+    """max_z ||K z - L (L^T z)|| / ||K z|| over the columns of Z."""
+    KZ = K @ Z
+    LLZ = fact.tri_matvec(fact.tri_matvec(Z, trans=True))
+    return float(((KZ - LLZ).norm(dim=0) / KZ.norm(dim=0)).max())
+
+
 def main_path(n: int, profile: str | None) -> dict:
+    import dataclasses
+
     import torch
     from repro_torch import CholOptions, TLROperator, covariance_problem
-    from repro_torch.kernels import batched_gemm as bg
     from repro_torch.kernels import build, ops
-    from repro_torch.kernels import lr_sample as lr
 
     tile, r_max, eps = TILE, R_MAX, EPS
 
@@ -800,7 +949,7 @@ def main_path(n: int, profile: str | None) -> dict:
     op, phases["compress"] = sync_time(
         lambda: TLROperator.compress(K, tile, r_max=r_max, eps=1e-8,
                                      method="svd", bs=16))
-    opts = CholOptions(eps=eps, bs=16, mode="dynamic", batching="flat")
+    opts = CholOptions(eps=eps, bs=16, mode="dynamic")   # batching "auto"
     fact, phases["factor"] = timed(lambda: op.cholesky(opts), profile,
                                    "factor")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -813,34 +962,29 @@ def main_path(n: int, profile: str | None) -> dict:
     S, phases["sample_2"] = sync_time(lambda: fact.sample(2, generator=g))
     Ax, phases["matvec"] = sync_time(lambda: op @ x)
     launches = ops.launch_counts()
-    lr_shapes = sorted(lr.SHAPES.items(), reverse=True)
-    log(f"launches on the main path: {json.dumps(launches)}")
-    log("batched_gemm launches per (T, m, k, n) on the main path: "
-        + shapes_line(bg.SHAPES))
-    log("lr_sample launches per (T, J) on the main path: "
-        + ", ".join(f"({t}, {j}) {c}" for (t, j), c in lr_shapes))
-    # the source's j split at those shapes: groups of j per row tile (the
-    # partials' workspace holds groups x T x b x s words when groups > 1)
-    groups = {(t, j): max(1, build.query("lr_sample", "workspace", K.dtype,
-                                         t, j, tile, r_max, 16)
-                          // (t * tile * 16)) for (t, j), _ in lr_shapes}
-    log("lr_sample j groups (blocks) per (T, J): " + ", ".join(
-        f"({t}, {j}) {gr} ({t * gr})" for (t, j), gr in groups.items()))
+    shapes = path_shapes()
+    batching = fact.stats["batching"]
+    log(f"launches on the main path (batching auto -> {batching}): "
+        f"{json.dumps(launches)}")
+    log_shapes("main path", shapes)
+    # the source's j split at the lr_sample shapes: groups of j per row tile
+    # (the partials' workspace holds groups x T x b x s words when groups > 1)
+    groups = {sh: max(1, build.query("lr_sample", "workspace", K.dtype,
+                                     sh[0], sh[1], tile, sh[2], 16)
+                      // (sh[0] * tile * 16)) for sh in shapes["lr_sample"]}
+    log("lr_sample j groups (blocks) per (T, J, r): " + ", ".join(
+        f"{sh} {gr} ({sh[0] * gr})" for sh, gr in sorted(groups.items(),
+                                                         reverse=True)))
 
-    ra, rl = op.A.ranks.float(), fact.L.ranks.float()
+    ra = op.A.ranks.float()
     log(f"phase seconds: {json.dumps({k: round(v, 4) for k, v in phases.items()})}")
-    log(f"A ranks: max {int(ra.max())} mean {float(ra.mean()):.2f}; "
-        f"L ranks: max {int(rl.max())} mean {float(rl.mean()):.2f} "
-        f"(r_max {r_max})")
+    log(f"A ranks: max {int(ra.max())} mean {float(ra.mean()):.2f} median "
+        f"of the positive {op.plan().median_rank} (r_max {r_max})")
     assert int(ra.max()) < r_max, \
         f"A's max rank reached r_max={r_max}: compression clipped; raise R_MAX"
     mem = torch.cuda.max_memory_allocated()
     log(f"max_memory_allocated: {mem / 2**30:.2f} GiB")
-    st = fact.stats
-    log(f"factor: {sum(st['column_iters'])} ARA block iterations over "
-        f"{len(st['column_iters'])} columns, modified_chol "
-        f"{st['modified_chol']}, safety_valve {st['safety_valve']}, "
-        f"stage seconds {json.dumps({k: round(v, 3) for k, v in st['schedule']['kind_seconds'].items()})}")
+    left_summary(fact, f"main path ({batching})", r_max)
 
     # Gates: every kernel of the path ran, outputs finite, randomized factor
     # residual.
@@ -852,9 +996,7 @@ def main_path(n: int, profile: str | None) -> dict:
         assert bool(torch.isfinite(t).all()), f"{name} has non-finite values"
     assert S.shape == (n, 2) and X4.shape == (n, 4)
     Z = torch.randn((n, 3), generator=g, device="cuda", dtype=K.dtype)
-    KZ = K @ Z
-    LLZ = fact.tri_matvec(fact.tri_matvec(Z, trans=True))
-    resid = float(((KZ - LLZ).norm(dim=0) / KZ.norm(dim=0)).max())
+    resid = left_residual(K, fact, Z)
     solve_err = float((x - x_true).norm() / x_true.norm())
     mv_err = float((Ax - y).norm() / y.norm())
     log(f"factor residual max_z ||Kz - L L^T z||/||Kz|| = {resid:.3e} "
@@ -862,14 +1004,47 @@ def main_path(n: int, profile: str | None) -> dict:
         f"matvec rel err {mv_err:.3e}")
     assert resid <= 100 * eps, "factor residual above 100 eps"
     assert mv_err <= 1e-6, "TLR matvec disagrees with the dense K"
-    round_launches = rounding_phase(op, K, g)
+    del X4, S, Y4
+
+    # The same compressed operator factored with the other batching value,
+    # so that flat and ranked both run at full size.
+    other = "flat" if batching == "ranked" else "ranked"
+    ops.reset_launch_counts()
+    fact2, sec2 = sync_time(lambda: op.cholesky(
+        dataclasses.replace(opts, batching=other)))
+    launches2 = ops.launch_counts()
+    shapes2 = path_shapes()
+    resid2 = left_residual(K, fact2, Z)
+    differ = int((fact2.L.ranks != fact.L.ranks).sum())
+    log(f"main path, batching={other}: factor {sec2:.3f} s (the {batching} "
+        f"factorization: {phases['factor']:.3f} s); launches "
+        f"{json.dumps(launches2)}; residual {resid2:.3e} (gate "
+        f"{100 * eps:.0e}); L ranks differ from the {batching} factor's in "
+        f"{differ} of {fact.L.ranks.numel()} tiles")
+    log_shapes(f"main path ({other})", shapes2)
+    left_summary(fact2, f"main path ({other})", r_max)
+    for name in MAIN_KERNELS:
+        assert launches2[name] > 0, \
+            f"kernel {name} was not launched by the {other} factorization"
+    assert resid2 <= 100 * eps, f"{other} factor residual above 100 eps"
+    del fact2
+    # The run's first factorization also pays the kernels' module loading:
+    # time the default once more, warm, beside the other value's run.
+    _, sec_warm = sync_time(lambda: op.cholesky(opts))
+    phases["factor_warm"] = sec_warm
+    log(f"main path factorization seconds, warm: {batching} {sec_warm:.3f}, "
+        f"{other} {sec2:.3f} (the first, cold: {batching} "
+        f"{phases['factor']:.3f})")
+
+    reads = read_paths(op, fact, g)
+    rounding = rounding_phase(op, K, g)
     # The A-tile ranks batched_gemm gets in the first column (rows 1..nb-1).
     nb = n // tile
     rows = torch.arange(1, nb, device="cuda")
     ranks_a = op.A.ranks[rows * (rows - 1) // 2].contiguous()
     log(f"A ranks of the first column (batched_gemm's shape check): max "
         f"{int(ranks_a.max())} mean {float(ranks_a.float().mean()):.2f}")
-    del op, fact, X4, S, Y4, LLZ, KZ, Z
+    del op, fact
     torch.cuda.empty_cache()
     svd_drivers(K, tile)
     Ld, t_dense = sync_time(lambda: torch.linalg.cholesky(K))
@@ -877,49 +1052,96 @@ def main_path(n: int, profile: str | None) -> dict:
     log(f"logdet: TLR {float(ld):.6f}, dense cholesky {ld_dense:.6f} "
         f"(rel diff {abs(float(ld) - ld_dense) / abs(ld_dense):.2e}; dense "
         f"check {t_dense:.2f} s)")
-    return {"launches": launches, "phases": phases, "ranks_a": ranks_a,
-            "round_launches": round_launches}
+    by_batching = {batching: (launches, shapes), other: (launches2, shapes2)}
+    return {"launches": launches, "batching": batching,
+            "flat": by_batching["flat"], "ranked": by_batching["ranked"],
+            "phases": phases, "ranks_a": ranks_a, "reads": reads,
+            **rounding}
+
+
+def read_paths(op, fact, g, reps: int = 20) -> dict:
+    """The read paths on the main path's operator and factor, flat beside
+    ranked: ``op.matvec``, the factor's ``tri_matvec`` (L and L^T) and the
+    two triangular solves of ``solve`` (``tri_solve`` forward, then
+    transposed), on 1 and 4 right-hand sides. Each is timed warm by CUDA
+    events over ``reps`` back-to-back calls (the host's dispatch and index
+    work included, as a caller pays it). Gate: ranked agrees with flat to
+    1e-12 (products) or 1e-9 (solves), relative."""
+    import torch
+    n = op.n
+    out = {}
+    for m in (1, 4):
+        x = torch.randn((n, m), generator=g, device=op.device,
+                        dtype=op.dtype)[:, 0 if m == 1 else slice(None)]
+        calls = {
+            "matvec": lambda b: op.matvec(x, batching=b),
+            "tri_matvec": lambda b: fact.tri_matvec(x, batching=b),
+            "tri_matvec_t": lambda b: fact.tri_matvec(x, trans=True,
+                                                      batching=b),
+            "solve": lambda b: fact.tri_solve(
+                fact.tri_solve(x, batching=b), trans=True, batching=b),
+        }
+        for name, call in calls.items():
+            got = {b: call(b) for b in ("flat", "ranked")}
+            rel = float((got["ranked"] - got["flat"]).norm()
+                        / got["flat"].norm())
+            ms = {b: event_ms(lambda: call(b), reps)
+                  for b in ("flat", "ranked")}
+            tol = 1e-9 if name == "solve" else 1e-12
+            log(f"read path {name} ({m} rhs): flat {ms['flat']:.4f} ms, "
+                f"ranked {ms['ranked']:.4f} ms (x "
+                f"{ms['ranked'] / ms['flat']:.2f}); ranked vs flat rel "
+                f"{rel:.2e} (gate {tol:.0e})")
+            assert rel <= tol, f"read path {name}: ranked disagrees with flat"
+            out[f"{name}_{m}"] = ms
+    return out
 
 
 # -- phase 6: the rounding pass on the main path's operator -------------------------------
 
 
 def rounding_phase(op, K, g, eps: float = 1e-6) -> dict:
-    """``op.round(eps)`` on the compressed main-path operator: the factored
-    branch (batched QR of the (nt, b, r_max) factor stacks, SVD of the
-    (nt, r_max, r_max) cores). Gates: the QR and SVD kernels ran, no tile's
-    rank rose, and the rounded operator's matvec is within 1e-5 (relative)
-    of the dense ``K x``."""
+    """``op.round(eps)`` on the compressed main-path operator, flat (one
+    r_max-wide batch: QR of the (nt, b, r_max) factor stacks, SVD of the
+    (nt, r_max, r_max) cores) and ranked (the same per rank bucket at its
+    width), each timed on its second call. Gates for each: the QR and SVD
+    kernels ran, no tile's rank rose, and the rounded operator's matvec is
+    within 1e-5 (relative) of the dense ``K x``."""
     import torch
-    from repro_torch.kernels import batched_gemm as bg
-    from repro_torch.kernels import batched_qr as qr
     from repro_torch.kernels import ops
-    from repro_torch.kernels import small_svd as svd
 
-    ops.reset_launch_counts()
-    rop, sec = sync_time(lambda: op.round(eps))
-    launches = ops.launch_counts()
-    log(f"small_svd launches per (T, m, n) on the round path: "
-        f"{shapes_line(svd.SHAPES)}")
-    log(f"batched_qr launches per (T, b, r) on the round path: "
-        f"{shapes_line(qr.SHAPES)}")
-    log(f"batched_gemm launches per (T, m, k, n) on the round path: "
-        f"{shapes_line(bg.SHAPES)}")
-    r0, r1 = op.A.ranks, rop.A.ranks
     x = torch.randn((K.shape[0],), generator=g, device="cuda", dtype=K.dtype)
     y = K @ x
-    mv_err = float((rop @ x - y).norm() / y.norm())
-    log(f"rounding phase: op.round({eps:g}) in {sec:.3f} s; launches "
-        f"{json.dumps(launches)}; ranks max {int(r0.max())} -> "
-        f"{int(r1.max())}, mean {float(r0.float().mean()):.2f} -> "
-        f"{float(r1.float().mean()):.2f}, {int((r1 < r0).sum())} of "
-        f"{r0.numel()} tiles lower; matvec rel err {mv_err:.3e} (gate 1e-5)")
-    for name in ("batched_qr", "small_svd"):
-        assert launches[name] > 0, f"{name} not launched by op.round"
-    assert bool((r1 <= r0).all()), "op.round raised a tile's rank"
-    assert mv_err <= 1e-5, "rounded operator's matvec disagrees with K"
-    del rop
-    return launches
+    out, ranks = {}, {}
+    r0 = op.A.ranks
+    for batching in ("flat", "ranked"):
+        op.round(eps, batching=batching)     # warm: module loading
+        ops.reset_launch_counts()
+        rop, sec = sync_time(lambda: op.round(eps, batching=batching))
+        launches = ops.launch_counts()
+        shapes = path_shapes()
+        log_shapes(f"round path ({batching})", shapes)
+        r1 = ranks[batching] = rop.A.ranks
+        mv_err = float((rop @ x - y).norm() / y.norm())
+        log(f"rounding phase ({batching}): op.round({eps:g}) in {sec:.3f} "
+            f"s; launches {json.dumps(launches)}; ranks max {int(r0.max())} "
+            f"-> {int(r1.max())}, mean {float(r0.float().mean()):.2f} -> "
+            f"{float(r1.float().mean()):.2f}, {int((r1 < r0).sum())} of "
+            f"{r0.numel()} tiles lower; matvec rel err {mv_err:.3e} (gate "
+            f"1e-5)")
+        for name in ("batched_qr", "small_svd"):
+            assert launches[name] > 0, \
+                f"{name} not launched by op.round ({batching})"
+        assert bool((r1 <= r0).all()), f"op.round ({batching}) raised a rank"
+        assert mv_err <= 1e-5, \
+            f"rounded operator's matvec ({batching}) disagrees with K"
+        out[f"round_{batching}"] = (launches, shapes)
+        del rop
+    log(f"rounding phase: ranks flat vs ranked differ in "
+        f"{int((ranks['flat'] != ranks['ranked']).sum())} of {r0.numel()} "
+        f"tiles (max |diff| "
+        f"{int((ranks['flat'] - ranks['ranked']).abs().max())})")
+    return out
 
 
 # -- phase 7: the right-looking driver ----------------------------------------------------
@@ -954,18 +1176,22 @@ def gemm_rank_log():
 
 def gemm_shapes(calls: dict) -> dict:
     """(T, m, k, n) -> (launches, per-t mean live rank min(max(rank, 0), k)
-    over them) from a ``gemm_rank_log``."""
+    over them, the live ranks of the call with the most live columns) from
+    a ``gemm_rank_log``."""
     import torch
-    return {(T, m, k, n): (len(rs), torch.stack(rs).clamp(0, k).double()
-                           .mean(dim=0))
-            for (T, m, k, n), rs in calls.items()}
+    out = {}
+    for (T, m, k, n), rs in calls.items():
+        live = torch.stack(rs).clamp(0, k)
+        out[(T, m, k, n)] = (len(rs), live.double().mean(dim=0),
+                             live[int(live.sum(dim=1).argmax())])
+    return out
 
 
 def gemm_shapes_line(shapes: dict) -> str:
     return ", ".join(
         f"{shape} {c} (live rank mean {float(r.mean()):.2f}, max "
         f"{float(r.max()):.0f})"
-        for shape, (c, r) in sorted(shapes.items(), reverse=True))
+        for shape, (c, r, _) in sorted(shapes.items(), reverse=True))
 
 
 def shape_times(name: str, shapes: dict, dtype_name: str = "float64"
@@ -995,7 +1221,7 @@ def shape_times(name: str, shapes: dict, dtype_name: str = "float64"
         X = X.to(dtype)
         library, note = None, ""
         if name == "batched_gemm":
-            count, mean = count
+            count, mean, _ = count
             k = shape[2]
             B = (torch.randn((T, k, n), generator=g, device="cuda",
                              dtype=torch.float64) / math.sqrt(k)).to(dtype)
@@ -1042,42 +1268,57 @@ def shape_times(name: str, shapes: dict, dtype_name: str = "float64"
 
 def right_phase(n: int, profile: str | None) -> dict:
     """The 2-D exponential covariance at N = ``n``, tile 128, compressed at
-    1e-8 with r_max 128, factored by the right-looking driver (Cholesky,
-    then LDL^T, flat batching). Gates per factorization: the QR, SVD and
-    GEMM kernels ran, the randomized residual ``||K z - L D L^T z|| /
-    ||K z|| <= 100 eps`` holds and a solve is finite. Logs ``small_svd``'s,
-    ``batched_qr``'s and ``batched_gemm``'s launches per shape and, after
-    both, their times per shape."""
+    1e-8 with r_max 128, factored by the right-looking driver: Cholesky and
+    LDL^T, each with flat and with ranked batching, and the ranked Cholesky
+    again at accumulation cadences (``right_flush``) 2 and 4. Gates per
+    factorization: the QR, SVD and GEMM kernels ran, the randomized
+    residual ``||K z - L D L^T z|| / ||K z|| <= 100 eps`` holds and a solve
+    is finite. Logs flushes, append widths, peak memory and
+    ``small_svd``'s, ``batched_qr``'s and ``batched_gemm``'s launches per
+    shape and, after all four, their times per shape."""
+    import dataclasses
+
     import torch
     from repro_torch import CholOptions, TLROperator, covariance_problem
-    from repro_torch.kernels import batched_qr as qr
     from repro_torch.kernels import ops
-    from repro_torch.kernels import small_svd as svd
 
     tile, eps = TILE_RIGHT, EPS
-    torch.cuda.reset_peak_memory_stats()
     _, K = covariance_problem(n, 2, tile, device="cuda")
     op, t_comp = sync_time(lambda: TLROperator.compress(
         K, tile, r_max=R_MAX, eps=1e-8, method="svd"))
     ra = op.A.ranks.float()
     log(f"right phase: 2-D exp covariance N={n} tile={tile} "
         f"(nb={n // tile}, nt={op.A.U.shape[0]}); compress {t_comp:.2f} s, "
-        f"A ranks max {int(ra.max())} mean {float(ra.mean()):.2f}")
+        f"A ranks max {int(ra.max())} mean {float(ra.mean()):.2f} median of "
+        f"the positive {op.plan().median_rank}")
     g = torch.Generator(device="cuda").manual_seed(2)
     Z = torch.randn((n, 3), generator=g, device="cuda", dtype=K.dtype)
     KZ = K @ Z
     y = K @ torch.randn((n,), generator=g, device="cuda", dtype=K.dtype)
     out = {}
-    for kind in ("cholesky", "ldlt"):
-        opts = CholOptions(eps=eps, algo="right", batching="flat")
+    base = CholOptions(eps=eps, algo="right")
+    # (kind, batching, right_flush; 0 is the policy's cadence): the ranked
+    # Cholesky also at cadences 2 and 4, for its time against peak memory
+    runs = [(kind, b, 0) for kind in ("cholesky", "ldlt")
+            for b in ("flat", "ranked")]
+    runs += [("cholesky", "ranked", f) for f in (2, 4)]
+    for kind, batching, flush in runs:
+        key = (f"right_{kind}" + ("" if batching == "flat" else "_ranked")
+               + (f"_flush{flush}" if flush else ""))
+        opts = dataclasses.replace(base, batching=batching,
+                                   right_flush=flush)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         with gemm_rank_log() as gemm_calls:
             fact, sec = timed(lambda: getattr(op, kind)(opts),
-                              profile if kind == "cholesky" else None,
-                              "right_cholesky")
+                              profile if kind == "cholesky" and not flush
+                              else None,
+                              key)
         launches = ops.launch_counts()
-        shapes = {"small_svd": dict(svd.SHAPES),
-                  "batched_qr": dict(qr.SHAPES),
+        peak = torch.cuda.max_memory_allocated()
+        shapes = {"small_svd": path_shapes()["small_svd"],
+                  "batched_qr": path_shapes()["batched_qr"],
                   "batched_gemm": gemm_shapes(gemm_calls)}
         LtZ = fact.tri_matvec(Z, trans=True)
         if fact.d is not None:
@@ -1087,38 +1328,43 @@ def right_phase(n: int, profile: str | None) -> dict:
         x, t_solve = sync_time(lambda: fact.solve(y))
         st = fact.stats
         rl = fact.L.ranks.float()
-        log(f"right {kind}: factor {sec:.3f} s, {st['flushes']} flushes, "
-            f"acc_width {st['acc_width']}, L ranks max {int(rl.max())} mean "
-            f"{float(rl.mean()):.2f}, modified_chol {st['modified_chol']}, "
-            f"stage seconds "
+        aw = st["append_widths"]
+        log(f"{key}: factor {sec:.3f} s, batching {st['batching']}, policy "
+            f"right_flush {st['policy']['right_flush']}, {st['flushes']} "
+            f"flushes, acc_width {st['acc_width']}, append widths "
+            f"{dict(sorted(collections.Counter(aw).items())) or None}, peak "
+            f"memory {peak / 2**30:.2f} GiB, L ranks max {int(rl.max())} "
+            f"mean {float(rl.mean()):.2f}, modified_chol "
+            f"{st['modified_chol']}, stage seconds "
             f"{json.dumps({k: round(v, 3) for k, v in st['schedule']['kind_seconds'].items()})}; "
             f"residual {resid:.3e} (gate {100 * eps:.0e}); solve "
             f"{t_solve:.3f} s; launches {json.dumps(launches)}")
         for name in ROUND_KERNELS:
             assert launches[name] > 0, \
-                f"kernel {name} was not launched by the right-looking {kind}"
-        assert resid <= 100 * eps, f"right {kind}: residual above 100 eps"
-        assert bool(torch.isfinite(x).all()), f"right {kind}: solve not finite"
-        out[f"right_{kind}"] = launches
-        out[f"right_{kind}_seconds"] = sec
-        out[f"right_{kind}_shapes"] = shapes
-        log(f"right {kind}: small_svd launches per (T, m, n): "
+                f"kernel {name} was not launched by {key}"
+        assert resid <= 100 * eps, f"{key}: residual above 100 eps"
+        assert bool(torch.isfinite(x).all()), f"{key}: solve not finite"
+        out[key] = launches
+        out[f"{key}_seconds"] = sec
+        out[f"{key}_shapes"] = shapes
+        log(f"{key}: small_svd launches per (T, m, n): "
             f"{shapes_line(shapes['small_svd'])}; batched_qr per (T, b, r): "
             f"{shapes_line(shapes['batched_qr'])}")
-        log(f"right {kind}: batched_gemm launches per (T, m, k, n): "
+        log(f"{key}: batched_gemm launches per (T, m, k, n): "
             f"{gemm_shapes_line(shapes['batched_gemm'])}")
         del fact, LtZ, x, gemm_calls
-    log(f"right phase max_memory_allocated: "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del op, K, KZ, Z
     torch.cuda.empty_cache()
-    for kind in ("cholesky", "ldlt"):
+    for kind, batching, flush in runs:
+        if flush:
+            continue
+        key = f"right_{kind}" + ("" if batching == "flat" else "_ranked")
         for name in ("small_svd", "batched_qr", "batched_gemm"):
-            log(f"right {kind}: {name} per shape (f64, timed apart from "
-                f"the path):")
-            sec = shape_times(name, out[f"right_{kind}_shapes"][name])
-            log(f"right {kind}: {name} {sec:.3f} s of the factorization's "
-                f"{out[f'right_{kind}_seconds']:.3f} s")
+            log(f"{key}: {name} per shape (f64, timed apart from the "
+                f"path):")
+            sec = shape_times(name, out[f"{key}_shapes"][name])
+            log(f"{key}: {name} {sec:.3f} s of the factorization's "
+                f"{out[f'{key}_seconds']:.3f} s")
     return out
 
 
@@ -1141,16 +1387,45 @@ def main() -> int:
     build_kernels()
     main = main_path(args.n, args.profile)
     right = right_phase(N_RIGHT, args.profile)
-    results = check_kernels(main["ranks_a"])
+    # each kernel's widest rank bucket on the ranked paths that launch it:
+    # the sampling kernels' on the ranked main path, QR's, SVD's and
+    # batched_gemm's (at that call's live ranks) on the ranked
+    # right-looking Cholesky
+    ranked = {name: [] for name in KERNELS}
+    for name in MAIN_KERNELS:
+        shape = widest_bucket(main["ranked"][1][name])
+        if shape:
+            ranked[name].append(("main", shape, None))
+    right_shapes = right["right_cholesky_ranked_shapes"]
+    for name in ROUND_KERNELS:
+        shape = widest_bucket(right_shapes[name])
+        if shape:
+            ranks = (right_shapes[name][shape][2]
+                     if name == "batched_gemm" else None)
+            ranked[name].append(("right_cholesky_ranked", shape, ranks))
+    log("widest rank buckets on the ranked paths: " + json.dumps(
+        {name: [(path, shape) for path, shape, _ in cases]
+         for name, cases in ranked.items()}))
+    results = check_kernels(main["ranks_a"], ranked=ranked)
     small_parity()
 
-    by_path = {"main": main["launches"], "round": main["round_launches"],
-               "right_cholesky": right["right_cholesky"],
-               "right_ldlt": right["right_ldlt"]}
+    other = "flat" if main["batching"] == "ranked" else "ranked"
+    by_path = {"main": main["launches"],
+               f"main_{other}": main[other][0],
+               "round_flat": main["round_flat"][0],
+               "round_ranked": main["round_ranked"][0],
+               **{key: right[key] for key in (
+                   "right_cholesky", "right_ldlt", "right_cholesky_ranked",
+                   "right_ldlt_ranked")}}
+    log(f"main path batching: auto -> {main['batching']} (main_{other}: "
+        f"the same operator factored with batching={other})")
     kernels = []
     for name in KERNELS:
         head = next(r for (k, _, d), r in results.items()
                     if k == name and d == "float64" and r["headline"])
+        rheads = [r for (k, lbl, d), r in results.items()
+                  if k == name and d == "float64"
+                  and lbl.startswith(RANKED_HEAD)]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -1172,6 +1447,12 @@ def main() -> int:
             **{k: head[k] for k in ("graph_ms", "graph_plain_ms",
                                     "graph_library_ms") if k in head},
             "shape": head["shape"], "dtype": "float64",
+            # the same numbers at the widest rank bucket of each ranked
+            # path that launches it (the path is in the shape label)
+            "ranked": [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms", "graph_ms")
+                        if k in r} for r in rheads],
             "checked": sorted({f"{lbl} {d}" for (k, lbl, d) in results
                                if k == name}),
         })

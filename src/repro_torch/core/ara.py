@@ -189,14 +189,21 @@ def ara_iteration(sample_fn: Callable[[Any, torch.Tensor], torch.Tensor],
 
 def run_ara_fused(sample_fn, samplet_fn, data, draw: Draw, *, T: int, b: int,
                   p: ARAParams, dtype, device, share_omega: bool = True,
-                  valid=None):
+                  valid=None, project: bool = True):
     """ARA for a whole batch until every tile converges or the iteration
     cap is reached, then the projection ``B = Op^T Q``.
-    Returns ``(Q, B, ranks, state)``."""
+    Returns ``(Q, B, ranks, state)``.
+
+    ``project=False`` skips the projection and returns ``B = None``: the
+    ranked factorization reads the detected ranks first, then projects
+    against ``Q`` sliced to the rank-ladder width that covers them (exact:
+    columns of ``Q`` past each tile's rank are zero)."""
     state = init_state(T, b, p, dtype, device, valid=valid)
     while state.it < p.iters and not bool(state.converged.all()):
         state = ara_iteration(sample_fn, data, state, draw, p,
                               share_omega=share_omega, T=T, b=b)
+    if not project:
+        return state.Q, None, state.rank, state
     B = samplet_fn(data, state.Q)  # (T, m, r_max); cols past rank are zero
     return state.Q, B, state.rank, state
 

@@ -56,3 +56,50 @@ def _pad_axis(x: torch.Tensor, size: int, axis: int = 0) -> torch.Tensor:
     shape = list(x.shape)
     shape[axis] = size - x.shape[axis]
     return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
+# -- dispatch-shape registry (counterpart of repro/core/buckets.py:72-126) ----
+
+# The JAX package counts compiled variants of each jitted core family; a
+# jitted core compiles once per operand shape. PyTorch compiles nothing, so
+# the port counts what those compiles were keyed on: the distinct dispatch
+# shapes of each family. Keys in use:
+#
+#   "batching" -- rank-bucketed rounding / densify cores (core/batching.py),
+#   "plan"     -- rank-bucketed read-path chains driven by a TilePlan
+#                 (core/solve.py).
+#
+# Each family must stay O(ladder length) per shape family and never scale
+# with the tile count or the rank distribution; it is also the set of
+# shapes a CUDA-graph capture of those cores would have to cover.
+_SHAPES: dict[str, set] = {}
+
+
+def trace_event(key: str, shape: tuple) -> None:
+    """Record one dispatch of family ``key`` at ``shape`` (a hashable
+    signature: operand shapes, dtype, static arguments)."""
+    _SHAPES.setdefault(key, set()).add(shape)
+
+
+def trace_count(key: str | None = None) -> int:
+    """Distinct dispatch shapes of one family, or of every family when
+    ``key`` is None (process-wide, monotone)."""
+    if key is None:
+        return sum(len(s) for s in _SHAPES.values())
+    return len(_SHAPES.get(key, ()))
+
+
+def trace_counts() -> dict[str, int]:
+    """Snapshot of the registry's per-family counts."""
+    return {key: len(s) for key, s in _SHAPES.items()}
+
+
+def trace_counts_diff(before: dict[str, int]) -> dict[str, int]:
+    """Per-family count deltas since the ``trace_counts()`` snapshot
+    ``before``; an empty dict means no new dispatch shape anywhere."""
+    out = {}
+    for key, val in trace_counts().items():
+        d = val - before.get(key, 0)
+        if d:
+            out[key] = d
+    return out

@@ -23,16 +23,24 @@ and their slots refilled. Each column's batch is zero-padded up to a
 (T, J) bucket pair of a power-of-two ladder, as in the JAX package, so both
 packages run the same padded batches.
 
-Right-looking (``algo="right"``, flat batching, sequential schedule). Per
-column: dense-factor the diagonal tile (already fully updated), round the
-column's accumulated tiles and TRSM them (``core/algebra.py``:
-``batched_qr`` + ``small_svd`` + ``batched_gemm``), then push the column's
-rank-r Schur update onto every trailing tile as an appended factor pair
-(``tlr_syrk_column``); every ``right_flush`` columns one rounding pass
-compacts the accumulation buffers.
+Right-looking (``algo="right"``, sequential schedule). Per column:
+dense-factor the diagonal tile (already fully updated), round the column's
+accumulated tiles and TRSM them (``core/algebra.py``: ``batched_qr`` +
+``small_svd`` + ``batched_gemm``), then push the column's rank-r Schur
+update onto every trailing tile as an appended factor pair
+(``tlr_syrk_column``); a rounding pass compacts the accumulation buffers
+whenever the next append would overflow them.
 
-Not in this port yet (each raises): pivoting, ``check=True``,
-``lookahead=True`` and ``batching`` other than ``"flat"``.
+``batching`` (default ``"auto"``, resolved by the rank-histogram policy of
+``core/batching.py`` and recorded in ``stats["policy"]``): under
+``"ranked"`` the left driver gathers A tiles at the ladder width ``wA``
+covering A's ranks and L tiles at the running ladder width ``wL`` of the
+factor's ranks, and projects at the width ``wQ`` covering each column's
+detected ranks; the right driver tracks each tile's content width, appends
+at the panel's ladder width and rounds per rank bucket.
+
+Not in this port yet (each raises): pivoting, ``check=True`` and
+``lookahead=True``.
 """
 
 from __future__ import annotations
@@ -48,10 +56,12 @@ import torch
 from .algebra import tlr_round_tiles, tlr_syrk_column
 from .ara import (ARAParams, ara_compress_dense, ara_iteration, init_state,
                   run_ara_fused, torch_probes)
+from .batching import (batching_trace_count, bucket_width,
+                       bucketed_round_tiles, resolve_policy, tile_plan)
 from .buckets import _bucket_ladder, _bucket_up, _column_buckets, _pad_axis
 from .operator import TLRFactorization
 from .stages import SequentialSchedule, Stage, run_graph
-from .tlr import TLRMatrix, tril_index, zeros_like_structure
+from .tlr import TLRMatrix, tril_index, tril_pairs, zeros_like_structure
 from ..kernels import ops
 
 Probes = Callable[[int, int, tuple, torch.dtype, torch.device], torch.Tensor]
@@ -63,7 +73,7 @@ class CholOptions:
     bs: int = 16
     r_max_out: int = 0            # 0 => A.r_max
     algo: str = "left"            # "left" (ARA sampling) | "right" (eager
-                                  # updates; flat, sequential)
+                                  # updates; sequential)
     mode: str = "dynamic"         # "dynamic" | "fused" (left-looking only)
     bucket: int = 0               # 0 => whole column in one batch
     share_omega: bool = True      # share Omega across the column
@@ -76,9 +86,11 @@ class CholOptions:
     max_iters: int = 0            # ARA iteration cap; 0 => r_max // bs
     right_flush: int = 0          # algo="right": columns of rank-r appends
                                   # accumulated between trailing rounding
-                                  # passes; 0 => 2 (the JAX package's flat
-                                  # auto policy)
-    batching: str = "flat"        # only "flat" is ported (JAX default "auto")
+                                  # passes; 0 => the auto policy picks the
+                                  # cadence from the rank histogram
+    batching: str = "auto"        # "auto" (rank-histogram policy) | "flat"
+                                  # (r_max-wide batches) | "ranked"
+                                  # (rank-bucketed batches)
     seed: int = 0
     lookahead: bool = False       # algo="right" lookahead schedule: not
                                   # ported, must stay False (ignored by
@@ -113,8 +125,6 @@ def _validate(opts: CholOptions) -> None:
                                   "port runs the sequential schedule")
     if opts.check:
         raise NotImplementedError("check=True (health/recovery) is not ported")
-    if opts.batching != "flat":
-        raise ValueError(f"batching={opts.batching!r}: only 'flat' is ported")
     if opts.mode not in ("dynamic", "fused"):
         raise ValueError(f"mode must be 'dynamic' or 'fused', got {opts.mode!r}")
 
@@ -122,33 +132,47 @@ def _validate(opts: CholOptions) -> None:
 # -- tile gathers -------------------------------------------------------------
 
 
-def _gather_L(L: TLRMatrix, rows, k: int, Tb: int, Jb: int):
-    """L tiles (i, j) for i in rows, j < k, zero-padded to (Tb, Jb, b, r)."""
-    T, b, r = len(rows), L.b, L.r_max
-    Ui = L.U.new_zeros((Tb, Jb, b, r))
-    Vi = L.V.new_zeros((Tb, Jb, b, r))
+# ``w`` (ranked batching) is the rank-ladder width covering the gathered
+# tiles' ranks: a tile's factor columns past its rank are zero, so gathering
+# only the first ``w`` columns is exact. The gathers index the ``[..., :w]``
+# view, so each copies only those columns into a contiguous stack that the
+# kernels take as it is.
+
+
+def _gather_L(L: TLRMatrix, rows, k: int, Tb: int, Jb: int,
+              w: int | None = None):
+    """L tiles (i, j) for i in rows, j < k, zero-padded to (Tb, Jb, b, w)."""
+    T, b, w = len(rows), L.b, w or L.r_max
+    Ui = L.U.new_zeros((Tb, Jb, b, w))
+    Vi = L.V.new_zeros((Tb, Jb, b, w))
     if T and k:
         idx = torch.as_tensor(
             [[tril_index(int(i), j) for j in range(k)] for i in rows],
             device=L.device)
-        Ui[:T, :k] = L.U[idx]
-        Vi[:T, :k] = L.V[idx]
+        Ui[:T, :k] = L.U[:, :, :w][idx]
+        Vi[:T, :k] = L.V[:, :, :w][idx]
     return Ui, Vi
 
 
-def _gather_L_row(L: TLRMatrix, i: int, k: int, Jb: int):
-    """L tiles (i, j), j < k, zero-padded to (Jb, b, r)."""
+def _gather_L_row(L: TLRMatrix, i: int, k: int, Jb: int,
+                  w: int | None = None):
+    """L tiles (i, j), j < k, zero-padded to (Jb, b, w)."""
+    w = w or L.r_max
     idx = torch.as_tensor([tril_index(i, j) for j in range(k)],
                           dtype=torch.long, device=L.device)
-    return _pad_axis(L.U[idx], Jb), _pad_axis(L.V[idx], Jb)
+    return (_pad_axis(L.U[:, :, :w][idx], Jb),
+            _pad_axis(L.V[:, :, :w][idx], Jb))
 
 
-def _gather_A_tiles(A: TLRMatrix, rows, k: int, Tb: int):
-    """A tiles (i, k) for i in rows (all i > k), and their ranks, zero-padded
-    to Tb slots."""
+def _gather_A_tiles(A: TLRMatrix, rows, k: int, Tb: int,
+                    w: int | None = None):
+    """A tiles (i, k) for i in rows (all i > k) at width ``w``, and their
+    ranks, zero-padded to Tb slots."""
+    w = w or A.r_max
     idx = torch.as_tensor([tril_index(int(i), k) for i in rows],
                           dtype=torch.long, device=A.device)
-    return (_pad_axis(A.U[idx], Tb), _pad_axis(A.V[idx], Tb),
+    return (_pad_axis(A.U[:, :, :w][idx], Tb),
+            _pad_axis(A.V[:, :, :w][idx], Tb),
             _pad_axis(A.ranks[idx], Tb))
 
 
@@ -307,13 +331,16 @@ def _factor_diag_tile(Akk, opts: CholOptions, stats: dict):
 # -- column processing ---------------------------------------------------------
 
 
-def _build_column_data(A, L, rows, k, dvec, ldl, Tb: int, Jb: int):
+def _build_column_data(A, L, rows, k, dvec, ldl, Tb: int, Jb: int,
+                       wA: int | None = None, wL: int | None = None):
     """Operand gather for one column, zero-padded up to bucket sizes;
-    ``valid`` marks the real row slots."""
+    ``valid`` marks the real row slots. ``wA`` / ``wL`` (ranked batching)
+    are the A-tile and L-tile gather widths, so the sampling chains run at
+    the bucketed width instead of ``r_max``."""
     T = len(rows)
-    Ui, Vi = _gather_L(L, rows, k, Tb, Jb)
-    Uk, Vk = _gather_L_row(L, k, k, Jb)
-    Ua, Va, ra = _gather_A_tiles(A, rows, k, Tb)
+    Ui, Vi = _gather_L(L, rows, k, Tb, Jb, wL)
+    Uk, Vk = _gather_L_row(L, k, k, Jb, wL)
+    Ua, Va, ra = _gather_A_tiles(A, rows, k, Tb, wA)
     return {
         "Ua": Ua, "Va": Va, "ranksA": ra.contiguous(),
         "Uk": Uk, "Vk": Vk, "Ui": Ui, "Vi": Vi,
@@ -363,45 +390,76 @@ class _ColumnPipeline:
         return lambda it, shape, dtype, device: self.probes(
             k, it, shape, dtype, device)
 
+    @staticmethod
+    def _key(data, *extra):
+        """A column step's operand shape: (Tb, Jb, A width, L width)."""
+        return (data["Ua"].shape[0], data["Uk"].shape[0],
+                data["Ua"].shape[2], data["Uk"].shape[2]) + extra
+
     def fused_col(self, data, Lkk, dk_new, k: int):
         Tb, b = data["Ua"].shape[0], data["Ua"].shape[1]
-        self._mark("column", (Tb, data["Uk"].shape[0]))
+        self._mark("column", self._key(data))
         Q, B, ranks, state = run_ara_fused(
             self.sample, self.sample_t, data, self.draw(k), T=Tb, b=b,
             p=self.p, dtype=data["Ua"].dtype, device=data["Ua"].device,
             share_omega=self.opts.share_omega, valid=data["valid"])
         return Q, _trsm(Lkk, dk_new, B, self.opts.ldl), ranks, state
 
+    def fused_sample(self, data, k: int):
+        """Ranked batching: sampling only; the projection runs once the
+        detected ranks are on the host, against Q at their ladder width."""
+        Tb, b = data["Ua"].shape[0], data["Ua"].shape[1]
+        self._mark("column", self._key(data, "sample"))
+        Q, _, ranks, state = run_ara_fused(
+            self.sample, self.sample_t, data, self.draw(k), T=Tb, b=b,
+            p=self.p, dtype=data["Ua"].dtype, device=data["Ua"].device,
+            share_omega=self.opts.share_omega, valid=data["valid"],
+            project=False)
+        return Q, ranks, state
+
     def dyn_step(self, data, state, k: int):
         Tb, b = state.Q.shape[0], state.Q.shape[1]
-        self._mark("column", (Tb, data["Uk"].shape[0]))
+        self._mark("column", self._key(data))
         return ara_iteration(self.sample, data, state, self.draw(k), self.p,
                              share_omega=self.opts.share_omega, T=Tb, b=b)
 
     def project(self, data, Q, Lkk, dk_new):
-        self._mark("project", (Q.shape[0], data["Uk"].shape[0]))
+        self._mark("project", self._key(data, Q.shape[0], Q.shape[2]))
         return _trsm(Lkk, dk_new, self.sample_t(data, Q), self.opts.ldl)
 
     def diag_update(self, Uk, Vk, dk):
-        self._mark("diag", Uk.shape[0])
+        self._mark("diag", (Uk.shape[0], Uk.shape[2]))
         return _diag_update_sum(Uk, Vk, dk)
 
 
 def _column_ara_fused(pipe: _ColumnPipeline, A, L, rows, k, dvec, Lkk,
-                      dk_new, ladder):
+                      dk_new, ladder, widths=(None, None)):
     T = len(rows)
     Tb, Jb = _column_buckets(A.nb, k, ladder)
-    data = _build_column_data(A, L, rows, k, dvec, pipe.opts.ldl, Tb, Jb)
-    Q, Vnew, ranks, state = pipe.fused_col(data, Lkk, dk_new, k)
+    wA, wL = widths
+    data = _build_column_data(A, L, rows, k, dvec, pipe.opts.ldl, Tb, Jb,
+                              wA, wL)
+    if wA is not None:
+        # Sample-then-project: the projection chain runs at the rank-ladder
+        # width covering the detected ranks, not at r_max (exact -- columns
+        # of Q past each tile's rank are zero).
+        Q, ranks, state = pipe.fused_sample(data, k)
+        wq = bucket_width(ranks[:T], pipe.p.r_max)
+        Vnew = pipe.project(data, Q[:, :, :wq].contiguous(), Lkk, dk_new)
+        Vnew = _pad_axis(Vnew, pipe.p.r_max, axis=2)
+    else:
+        wq = None
+        Q, Vnew, ranks, state = pipe.fused_col(data, Lkk, dk_new, k)
     info = {"iters": state.it, "err": state.err[:T].cpu().numpy(), "T": T,
-            "Tb": Tb, "Jb": Jb, "safety_valve": False, "wQ": None}
+            "Tb": Tb, "Jb": Jb, "safety_valve": False, "wQ": wq}
     return Q[:T], Vnew[:T], ranks[:T], info
 
 
 def _column_ara_dynamic(pipe: _ColumnPipeline, A, L, rows, k, dvec, Lkk,
-                        dk_new, ladder):
+                        dk_new, ladder, widths=(None, None)):
     """Algorithm 5: rank-sorted subset with converged-tile eviction/refill."""
     opts, p = pipe.opts, pipe.p
+    wA, wL = widths
     T_col = len(rows)
     requested = opts.bucket if opts.bucket > 0 else T_col
     requested = min(requested, T_col)
@@ -421,7 +479,7 @@ def _column_ara_dynamic(pipe: _ColumnPipeline, A, L, rows, k, dvec, Lkk,
     slot_rows = queue[:n_slots]
     queue = queue[n_slots:]
     data = _build_column_data(A, L, np.asarray(slot_rows), k, dvec, opts.ldl,
-                              Tb, Jb)
+                              Tb, Jb, wA, wL)
     state = init_state(Tb, A.b, p, A.dtype, A.device, valid=data["valid"])
 
     done_Q, done_rank, done_err = {}, {}, {}
@@ -455,7 +513,7 @@ def _column_ara_dynamic(pipe: _ColumnPipeline, A, L, rows, k, dvec, Lkk,
             sr = torch.as_tensor(refills, dtype=torch.long, device=A.device)
             new_rows = np.asarray([slot_rows[s] for s in refills])
             nd = _build_column_data(A, L, new_rows, k, dvec, opts.ldl,
-                                    len(refills), Jb)
+                                    len(refills), Jb, wA, wL)
             for name in ("Ua", "Va", "ranksA", "Ui", "Vi"):
                 data[name].index_copy_(0, sr, nd[name])
             state = dataclasses.replace(
@@ -493,13 +551,22 @@ def _column_ara_dynamic(pipe: _ColumnPipeline, A, L, rows, k, dvec, Lkk,
     # Assemble per-row results in the original row order, then project once
     # (batched, bucket-padded full column) into the bases.
     Q_all = torch.stack([done_Q[int(i)] for i in rows])
-    ranks = torch.as_tensor([done_rank[int(i)] for i in rows],
-                            dtype=torch.int32, device=A.device)
-    full_data = _build_column_data(A, L, rows, k, dvec, opts.ldl, Tb_col, Jb)
-    Vnew = pipe.project(full_data, _pad_axis(Q_all, Tb_col), Lkk, dk_new)
+    ranks_h = np.asarray([done_rank[int(i)] for i in rows], np.int32)
+    ranks = torch.as_tensor(ranks_h, device=A.device)
+    full_data = _build_column_data(A, L, rows, k, dvec, opts.ldl, Tb_col, Jb,
+                                   wA, wL)
+    if wA is not None:
+        # Project at the rank-ladder width covering the detected ranks.
+        wq = bucket_width(ranks_h, p.r_max)
+        Vnew = pipe.project(full_data, _pad_axis(Q_all[:, :, :wq], Tb_col),
+                            Lkk, dk_new)
+        Vnew = _pad_axis(Vnew, p.r_max, axis=2)
+    else:
+        wq = None
+        Vnew = pipe.project(full_data, _pad_axis(Q_all, Tb_col), Lkk, dk_new)
     info = {"iters": total_iters, "T": T_col, "Tb": Tb, "Jb": Jb,
             "err": np.asarray([done_err[int(i)] for i in rows]),
-            "safety_valve": safety_valve, "wQ": None}
+            "safety_valve": safety_valve, "wQ": wq}
     return Q_all, Vnew[:T_col], ranks, info
 
 
@@ -533,20 +600,29 @@ def _factorize(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
     r_out = opts.r_max_out or A.r_max
     p = opts.ara_params(r_out)
     probes = opts.probes or torch_probes(opts.seed)
+    policy = resolve_policy(opts.batching, tile_plan(A.ranks, A.r_max),
+                            b=b, dtype=A.dtype, right_flush=opts.right_flush)
+    batching = policy["batching"]
 
     Lout = zeros_like_structure(nb, b, r_out, A.dtype, A.device)
     dvec = A.D.new_zeros((nb, b)) if opts.ldl else None
     perm = np.arange(nb)
     ladder = _bucket_ladder(nb - 1)
     pipe = _ColumnPipeline(opts, p, probes)
+    # Ranked batching: the A-tile gather width is fixed by A's ranks; the
+    # L-tile gather width follows the running max of the written factor
+    # ranks (monotone up the ladder, so it changes at most ~log2(r_max)
+    # times over the whole factorization).
+    wA = bucket_width(tile_plan(A.ranks, A.r_max).ranks_host, A.r_max) \
+        if batching == "ranked" else None
+    wL = [1 if batching == "ranked" else None]
     stats = {
         "column_iters": [], "column_ranks": [], "modified_chol": 0,
         "pivots": [], "mode": opts.mode,
         "impl": "cuda" if A.D.is_cuda else "plain", "algo": "left",
         "bucket_ladder": list(ladder), "column_events": [],
         "column_traces": 0, "project_traces": 0, "diag_traces": 0,
-        "safety_valve": False, "batching": "flat",
-        "policy": {"requested": opts.batching, "batching": "flat"},
+        "safety_valve": False, "batching": batching, "policy": policy,
     }
     # Column state the stage closures share; the factor stacks are
     # written in place (``index_add_`` of each panel, ``copy_`` of each
@@ -557,7 +633,7 @@ def _factorize(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
         def fn():
             Akk = A.D[k]
             if k > 0:
-                Uk, Vk = _gather_L_row(Lout, k, k, k)
+                Uk, Vk = _gather_L_row(Lout, k, k, k, wL[0])
                 dk = dvec[:k] if opts.ldl else None
                 Dsum = pipe.diag_update(Uk, Vk, dk)
                 if opts.schur and not opts.ldl:
@@ -583,9 +659,12 @@ def _factorize(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
             pipe.begin_column()
             run = _column_ara_fused if opts.mode == "fused" \
                 else _column_ara_dynamic
+            w_gather = wL[0]
             Q, Vnew, ranks, info = run(pipe, A, Lout, rows, k, dvec, Lkk,
-                                       dk_new, ladder)
+                                       dk_new, ladder, (wA, w_gather))
             ranks_h = ranks.cpu().numpy()
+            if batching == "ranked":
+                wL[0] = max(wL[0], bucket_width(ranks_h, r_out))
             stats["column_iters"].append(info["iters"])
             stats["column_ranks"].append(ranks_h)
             stats["safety_valve"] |= info["safety_valve"]
@@ -594,6 +673,7 @@ def _factorize(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
                 "seconds": time.perf_counter() - t0,
                 "traced": pipe.column_traced,
                 "err": np.asarray(info["err"]), "wQ": info["wQ"],
+                "wA": wA, "wL": w_gather,
             })
             # Panel scatter: every packed-lower slot is written exactly once
             # across the factorization, so adding into the zero stacks is a
@@ -631,32 +711,44 @@ def _factorize(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
 
 def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
     """Right-looking TLR Cholesky / LDL^T on the batched tile algebra (port
-    of ``repro/core/cholesky.py:1204-1623``: flat batching, sequential
-    schedule).
+    of ``repro/core/cholesky.py:1204-1623``, sequential schedule).
 
     Per column: factor the (already fully updated) dense diagonal tile,
     round + TRSM the column's accumulated panel, then push the column's
     rank-r Schur update onto the trailing matrix (``tlr_syrk_column``).
     Trailing tiles carry growing concatenated factors; a rounding pass over
     the whole grid compacts them whenever the next append would overflow
-    the accumulation width, i.e. every ``right_flush`` columns. No sampling
-    chain, no ARA: ``mode`` / ``bs`` / ``share_omega`` / ``schur`` are
-    left-looking knobs and are ignored here.
+    the accumulation width. No sampling chain, no ARA: ``mode`` / ``bs`` /
+    ``share_omega`` / ``schur`` are left-looking knobs and are ignored
+    here.
+
+    Flat batching tracks one uniform first-free column ``used`` (every
+    tile (i, j) with j > k receives one rank-r_p append per factored
+    column). Ranked batching tracks each tile's content width ``tile_w``
+    on the host: appends land at the tile's own width, at the panel's
+    bucketed rank ``wk <= r_p`` (0 for a rank-0 panel, whose update is
+    skipped), so the window fills ~r_max / wk times slower, and the panel
+    and flush roundings run per rank bucket (``core/batching.py``).
     """
     nb, b = A.nb, A.b
     nt = A.U.shape[0]
     r_p = opts.r_max_out or A.r_max
-    flush_cols = max(1, int(opts.right_flush)) if opts.right_flush else 2
+    policy = resolve_policy(opts.batching, tile_plan(A.ranks, A.r_max),
+                            b=b, dtype=A.dtype, right_flush=opts.right_flush)
+    batching = policy["batching"]
+    ranked = batching == "ranked"
+    flush_cols = policy["right_flush"]
     w_acc = max(b, A.r_max) + flush_cols * r_p
 
     # Accumulation buffers: every off-diagonal tile's running low-rank
-    # concatenation, seeded with A's factors and updated in place. ``used``
-    # is the uniform first-free column: every live tile (i, j), j > k,
-    # receives one rank-r_p append per factored column.
+    # concatenation, seeded with A's factors and updated in place.
     accU = A.U.new_zeros((nt, b, w_acc))
     accV = A.V.new_zeros((nt, b, w_acc))
     accU[:, :, :A.r_max] = A.U
     accV[:, :, :A.r_max] = A.V
+    tile_w = tile_plan(A.ranks, A.r_max).ranks_host.copy() if ranked \
+        else None
+    pairs_np = tril_pairs(nb)
     Lout = zeros_like_structure(nb, b, r_p, A.dtype, A.device)
     dvec = A.D.new_zeros((nb, b)) if opts.ldl else None
     ladder = _bucket_ladder(nb - 1)
@@ -667,14 +759,12 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
         "bucket_ladder": list(ladder), "column_events": [],
         "column_traces": 0, "project_traces": 0, "diag_traces": 0,
         "safety_valve": False, "flushes": 0, "acc_width": w_acc,
-        "batching": "flat", "append_widths": [],
-        "policy": {"requested": opts.batching, "batching": "flat",
-                   "right_flush": flush_cols},
+        "batching": batching, "append_widths": [], "policy": policy,
     }
     # The trailing diagonal tiles are updated in place: work on a copy so
     # the caller's operator stays as it was.
     D = A.D.clone()
-    used = [A.r_max]
+    st = {"used": A.r_max, "tile_w": tile_w}
     col = [{} for _ in range(nb)]
     panel_shapes: set[int] = set()
 
@@ -690,50 +780,89 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
 
     def _panel_stage(k: int):
         # One rounding pass over the column's accumulated tiles (row batch
-        # padded up the bucket ladder, as in the JAX package), batched TRSM,
-        # then the in-place scatter of the panel into the factor.
+        # padded up the bucket ladder, as in the JAX package; per rank
+        # bucket under ranked batching), batched TRSM, then the in-place
+        # scatter of the panel into the factor.
         rows = np.arange(k + 1, nb)
         T = len(rows)
         Tb = _bucket_up(T, ladder)
-        tidx = torch.as_tensor(rows * (rows - 1) // 2 + k, device=A.device)
+        tidx_np = rows * (rows - 1) // 2 + k
+        tidx = torch.as_tensor(tidx_np, device=A.device)
         c = col[k]
 
         def fn():
             c["t0"] = time.perf_counter()
+            c["bt0"] = batching_trace_count()
             c["traced"] = Tb not in panel_shapes
             panel_shapes.add(Tb)
-            aU = _pad_axis(accU[tidx], Tb)
-            aV = _pad_axis(accV[tidx], Tb)
-            Q, B, ranks, err = tlr_round_tiles(aU, aV, opts.eps, r_out=r_p)
+            if ranked:
+                Q, B, ranks, err = bucketed_round_tiles(
+                    accU[tidx], accV[tidx], st["tile_w"][tidx_np], opts.eps,
+                    r_out=r_p)
+            else:
+                aU = _pad_axis(accU[tidx], Tb)
+                aV = _pad_axis(accV[tidx], Tb)
+                Q, B, ranks, err = tlr_round_tiles(aU, aV, opts.eps,
+                                                   r_out=r_p)
             Vn = _trsm(c["Lkk"], c["dk"], B, opts.ldl)
             Qs, Vns, ranks = Q[:T], Vn[:T], ranks[:T]
             Lout.U.index_add_(0, tidx, Qs)
             Lout.V.index_add_(0, tidx, Vns)
             Lout.ranks.index_add_(0, tidx, ranks)
+            ranks_h = ranks.cpu().numpy()
+            # A rank-0 panel contributes an exactly-zero Schur update, so
+            # the ranked trailing update skips it: no append, no growth.
+            wk = (bucket_width(ranks_h, r_p) if int(ranks_h.max(initial=0))
+                  else 0) if ranked else r_p
             c.update(Qs=Qs, Vns=Vns, ranks=ranks, err=err[:T], T=T, Tb=Tb,
-                     ranks_h=ranks.cpu().numpy())
+                     ranks_h=ranks_h, wk=wk)
 
         return fn
 
+    def _flush(k: int):
+        # Recompress every tile's accumulated concatenation back to width b
+        # in one rounding pass over the whole grid (tiles of factored
+        # columns are dead; rounding them too keeps one batch shape, as in
+        # the JAX package): one r_max-wide batch, or one per rank bucket
+        # of the tracked content widths.
+        if ranked:
+            Uc, Vc, rc, _ = bucketed_round_tiles(accU, accV, st["tile_w"],
+                                                 opts.eps, r_out=b)
+            st["tile_w"] = rc.cpu().numpy().astype(np.int64)
+        else:
+            Uc, Vc, _, _ = tlr_round_tiles(accU, accV, opts.eps, r_out=b)
+            st["used"] = b
+        accU.zero_()
+        accV.zero_()
+        accU[:, :, :b] = Uc
+        accV[:, :, :b] = Vc
+        stats["flushes"] += 1
+
     def _update_stage(k: int):
         c = col[k]
+        trail = np.nonzero(pairs_np[:, 1] > k)[0]
 
         def fn():
-            if used[0] + r_p > w_acc:
-                # Flush: recompress every tile's accumulated concatenation
-                # back to width b in one batched rounding pass over the
-                # whole grid (tiles of factored columns are dead; rounding
-                # them too keeps one batch shape, as in the JAX package).
-                Uc, Vc, _, _ = tlr_round_tiles(accU, accV, opts.eps, r_out=b)
-                accU.zero_()
-                accV.zero_()
-                accU[:, :, :b] = Uc
-                accV[:, :, :b] = Vc
-                used[0] = b
-                stats["flushes"] += 1
-            tlr_syrk_column(accU, accV, used[0], D, c["Qs"], c["Vns"],
-                            c["ranks"], c["dk"], k)
-            used[0] += r_p
+            wk = c["wk"]
+            if ranked:
+                if wk:
+                    # Flush before the column's append when it would
+                    # overflow the widest trailing tile's window.
+                    tw = st["tile_w"]
+                    high = int(tw[trail].max()) if trail.size else 0
+                    if high + wk > w_acc:
+                        _flush(k)
+                    tlr_syrk_column(accU, accV, st["tile_w"], D,
+                                    c["Qs"][:, :, :wk], c["Vns"][:, :, :wk],
+                                    c["ranks"], c["dk"], k)
+                    st["tile_w"][trail] += wk
+                stats["append_widths"].append(wk)
+            else:
+                if st["used"] + r_p > w_acc:
+                    _flush(k)
+                tlr_syrk_column(accU, accV, st["used"], D, c["Qs"],
+                                c["Vns"], c["ranks"], c["dk"], k)
+                st["used"] += r_p
             if D.is_cuda:
                 # Drain the column's work before timing it (the JAX
                 # sequential driver blocks here too).
@@ -743,8 +872,9 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
             stats["column_events"].append({
                 "k": k, "T": c["T"], "Tb": c["Tb"], "Jb": 0,
                 "seconds": time.perf_counter() - c["t0"],
-                "traced": c["traced"], "err": c["err"].cpu().numpy(),
-                "wQ": None,
+                "traced": c["traced"] or batching_trace_count() > c["bt0"],
+                "err": c["err"].cpu().numpy(),
+                "wQ": wk if ranked else None,
             })
             for key in ("Qs", "Vns", "ranks", "err"):
                 c.pop(key)
@@ -777,4 +907,5 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
     sched["requested_lookahead"] = False
     stats["schedule"] = sched
     stats["column_traces"] = len(panel_shapes)
+    stats["batching_traces"] = batching_trace_count()
     return TLRFactorization(L=Lout, d=dvec, perm=np.arange(nb), stats=stats)

@@ -6,8 +6,9 @@ solve/logdet/sample (section 6).
 * ``TLROperator`` wraps a ``TLRMatrix``: ``compress`` / ``from_dense`` /
   ``from_kernel`` (one batched SVD or batched ARA over all nt tiles),
   ``matvec`` / ``@``, ``to_dense``, ``memory_stats``, ``round`` (the
-  batched rounding pass of ``core/algebra.py``), and ``cholesky`` /
-  ``ldlt`` returning a factorization handle.
+  batched rounding pass of ``core/algebra.py``), ``plan`` (the rank-bucket
+  execution plan of ``core/batching.py``), and ``cholesky`` / ``ldlt``
+  returning a factorization handle.
 * ``TLRFactorization`` is the result handle of the factorizations:
   ``solve``, ``tri_matvec``, ``tri_solve``, ``logdet`` and ``sample``.
 
@@ -191,9 +192,18 @@ class TLROperator:
     # -- algebra ----------------------------------------------------------
 
     def matvec(self, x: torch.Tensor, *,
-               batching: str | None = "flat") -> torch.Tensor:
-        """y = A @ x; x is (n,) or batched (n, m)."""
+               batching: str | None = "auto") -> torch.Tensor:
+        """y = A @ x; x is (n,) or batched (n, m). ``batching`` picks flat
+        vs rank-bucketed dispatch (``"auto"`` lets the plan decide)."""
         return _solve.tlr_matvec(self.A, x, batching=batching)
+
+    def plan(self):
+        """The memoized :class:`~.batching.TilePlan` of this operator's
+        rank distribution (rank buckets, ladder widths), the execution plan
+        every batched path dispatches through."""
+        from .batching import tile_plan
+
+        return tile_plan(self.A.ranks, self.A.r_max)
 
     def __matmul__(self, x):
         if isinstance(x, torch.Tensor):
@@ -207,10 +217,11 @@ class TLROperator:
         return self.A.memory_stats()
 
     def round(self, eps: float, r_max_out: Optional[int] = None, *,
-              batching: str = "flat") -> "TLROperator":
-        """Recompress every off-diagonal tile at ``eps`` (one batched QR +
-        small-SVD pass, ``core/algebra.py::tlr_round``; flat batching
-        only, the JAX default ``"auto"`` is not ported)."""
+              batching: str = "auto") -> "TLROperator":
+        """Recompress every off-diagonal tile at ``eps`` (batched QR +
+        small-SVD, ``core/algebra.py::tlr_round``): one r_max-wide pass
+        (``"flat"``), one pass per rank bucket (``"ranked"``), or as the
+        rank histogram decides (``"auto"``)."""
         from .algebra import tlr_round
 
         return TLROperator(tlr_round(self.A, eps, r_max_out,
@@ -289,15 +300,23 @@ class TLRFactorization:
         return self.solve(y)
 
     def tri_matvec(self, x: torch.Tensor, *, trans: bool = False,
-                   batching: str | None = "flat") -> torch.Tensor:
+                   batching: str | None = "auto") -> torch.Tensor:
         """y = L @ x (or L^T @ x)."""
         return _solve.tlr_tri_matvec(self.L, x, trans=trans,
                                      batching=batching)
 
     def tri_solve(self, y: torch.Tensor, *, trans: bool = False,
-                  batching: str | None = "flat") -> torch.Tensor:
-        """x = L^{-1} y (or L^{-T} y) via the bucketed blocked TRSM."""
+                  batching: str | None = "auto") -> torch.Tensor:
+        """x = L^{-1} y (or L^{-T} y) via the bucketed blocked TRSM
+        (``batching`` picks flat vs plan-width column steps)."""
         return _solve.tlr_trsv(self.L, y, trans=trans, batching=batching)
+
+    def plan(self):
+        """The memoized :class:`~.batching.TilePlan` of the factor's rank
+        distribution (what the TRSM / tri_matvec read paths dispatch on)."""
+        from .batching import tile_plan
+
+        return tile_plan(self.L.ranks, self.L.r_max)
 
     def logdet(self) -> torch.Tensor:
         """log |det A| from the factorization diagonals."""

@@ -1,18 +1,22 @@
 """TLR matrix-vector products and triangular solves (section 4.4, Alg. 7),
 log-determinant and MVN sampling.
 
-Port of the flat (``batching="flat"``) read paths of ``repro/core/solve.py``
-(:47-59, :184-227, :245-478). The matvec marshals the off-diagonal tiles
-into one batched two-product chain ``U (V^T x)`` plus a segment reduction
-(``index_add_``). The triangular solve is the blocked TRSM of the JAX
-package: each column step solves the diagonal block and updates the
-remaining blocks through a batched low-rank chain whose row batch is
-zero-padded up to the power-of-two bucket ladder, so only ~log2(nb) step
-shapes occur. Right-hand sides may be single vectors ``(n,)`` or batched
-``(n, m)``.
+Port of the read paths of ``repro/core/solve.py`` (:47-390, :443-478).
+Every read path dispatches through the :class:`~.batching.TilePlan` layer:
+the matvec marshals the off-diagonal tiles into batched two-product chains
+``U (V^T x)`` plus a segment reduction (``index_add_``), either as one flat
+r_max-wide batch (``batching="flat"``) or once per rank bucket at the
+bucket's ladder width (``batching="ranked"``); ``"auto"`` (the default, as
+in the JAX package) lets the plan's rank histogram decide.
 
-Only ``batching="flat"`` exists in this port so far; other values raise
-(the JAX default is ``"auto"``).
+The triangular solve is the blocked TRSM of the JAX package: each column
+step solves the diagonal block and updates the remaining blocks through a
+batched low-rank chain whose row batch is zero-padded up to the
+power-of-two bucket ladder, so only ~log2(nb) step shapes occur. Under
+ranked batching each step also slices its U/V gathers to the plan width of
+its row-bucket interval. Right-hand sides may be single vectors ``(n,)`` or
+batched ``(n, m)``. The chains are stock torch products: in the JAX
+package they are einsums outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -22,14 +26,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .buckets import _bucket_ladder, _bucket_up
+from .batching import plan_memo, resolve_batching, tile_plan
+from .buckets import _bucket_ladder, _bucket_up, trace_event
 from .tlr import TLRMatrix, tril_index, tril_pairs
-
-
-def _check_batching(batching) -> None:
-    if batching not in (None, "flat"):
-        raise ValueError(f"batching={batching!r}: only 'flat' is ported "
-                         "(ranked/auto need the rank-bucketed TilePlan)")
 
 
 @lru_cache(maxsize=32)
@@ -52,17 +51,88 @@ def _diag_apply(D, xb, trans: bool = False):
     return Dt @ xb
 
 
+# -- rank-bucketed read-path chains (TilePlan consumers) ------------------------
+
+
+def _plan_trace(U, xb, idx, w: int) -> None:
+    trace_event("plan", (tuple(U.shape), tuple(xb.shape), idx.shape[0], w,
+                         str(U.dtype), U.device.type))
+
+
+def _plan_chain(U, V, xb, yb, idx, src, dst, valid, w: int) -> None:
+    """One rank bucket of a one-sided product, in place on ``yb``:
+    ``y[dst] += U (V^T x[src])`` at the bucket's ladder width ``w`` (exact:
+    factor columns past each tile's rank are zero). Padded slots gather
+    tile 0 / block 0 and are masked to an exact zero."""
+    _plan_trace(U, xb, idx, w)
+    y = _chain(U[:, :, :w][idx], V[:, :, :w][idx], xb[src])
+    m = valid.reshape((-1,) + (1,) * (y.dim() - 1))
+    yb.index_add_(0, dst, torch.where(m, y, torch.zeros_like(y)))
+
+
+def _plan_chain_sym(U, V, xb, yb, idx, rows, cols, valid, w: int) -> None:
+    """One rank bucket of the symmetric product, in place on ``yb``: the
+    lower chain ``y_i += U (V^T x_j)`` and its mirror ``y_j += V (U^T x_i)``
+    share one gather of the bucket's factors."""
+    _plan_trace(U, xb, idx, w)
+    Ut, Vt = U[:, :, :w][idx], V[:, :, :w][idx]
+    ylo = _chain(Ut, Vt, xb[cols])
+    yup = _chain(Vt, Ut, xb[rows])
+    m = valid.reshape((-1,) + (1,) * (ylo.dim() - 1))
+    yb.index_add_(0, rows, torch.where(m, ylo, torch.zeros_like(ylo)))
+    yb.index_add_(0, cols, torch.where(m, yup, torch.zeros_like(yup)))
+
+
+def _bucket_index_arrays(bk, device, *gathers):
+    """Pad a bucket's gather/scatter index vectors to its count-ladder slot
+    count, plus the valid mask (padded slots point at index 0, masked), as
+    device tensors."""
+    out = []
+    for g in gathers:
+        full = np.zeros(bk.padded, np.int64)
+        full[:bk.count] = g
+        out.append(torch.as_tensor(full, device=device))
+    valid = np.zeros(bk.padded, bool)
+    valid[:bk.count] = True
+    out.append(torch.as_tensor(valid, device=device))
+    return tuple(out)
+
+
+def _plan_gathers(plan, nb: int, device):
+    """Per-bucket padded ``(idx, rows, cols, valid)`` device tensors,
+    memoized on the plan (:func:`~.batching.plan_memo`)."""
+    def make():
+        pairs = tril_pairs(nb)
+        return [_bucket_index_arrays(bk, device, bk.idx, pairs[bk.idx, 0],
+                                     pairs[bk.idx, 1])
+                for bk in plan.buckets]
+    return plan_memo(plan, ("gathers", nb, torch.device(device)), make)
+
+
 # -- symmetric TLR matvec ------------------------------------------------------
 
 
 def tlr_matvec(A: TLRMatrix, x: torch.Tensor, *,
-               batching: str | None = "flat") -> torch.Tensor:
-    """y = A @ x for symmetric TLR A; x is (n,) or (n, m)."""
-    _check_batching(batching)
+               batching: str | None = "auto") -> torch.Tensor:
+    """y = A @ x for symmetric TLR A; x is (n,) or (n, m).
+
+    ``batching="ranked"`` runs the two-product chains per rank bucket of
+    the memoized :func:`~.batching.tile_plan` (each bucket at its own
+    ladder width, rank-0 tiles skipped); ``"flat"`` is the single
+    r_max-wide batch; ``"auto"`` (default) applies the rank-histogram
+    policy."""
     nb, b = A.nb, A.b
     xb = x.reshape(nb, b, *x.shape[1:])
     yb = _diag_apply(A.D, xb)
-    if nb > 1:
+    if nb == 1:
+        return yb.reshape(x.shape)
+    if resolve_batching(batching, A.ranks, A.r_max) == "ranked":
+        plan = tile_plan(A.ranks, A.r_max)
+        for bk, (idx, rows, cols, valid) in zip(
+                plan.buckets, _plan_gathers(plan, nb, xb.device)):
+            _plan_chain_sym(A.U, A.V, xb, yb, idx, rows, cols, valid,
+                            bk.width)
+    else:
         rows, cols = _pair_index(nb, xb.device)
         # lower tiles: y_i += U (V^T x_j);   mirrored upper: y_j += V (U^T x_i)
         yb.index_add_(0, rows, _chain(A.U, A.V, xb[cols]))
@@ -74,18 +144,32 @@ def tlr_matvec(A: TLRMatrix, x: torch.Tensor, *,
 
 
 def tlr_tri_matvec(L: TLRMatrix, x: torch.Tensor, *, trans: bool = False,
-                   batching: str | None = "flat") -> torch.Tensor:
-    """y = L @ x (or L^T @ x) for lower-triangular TLR L."""
-    _check_batching(batching)
+                   batching: str | None = "auto") -> torch.Tensor:
+    """y = L @ x (or L^T @ x) for lower-triangular TLR L. Same ``batching``
+    dispatch as :func:`tlr_matvec` (the transposed product swaps the U/V
+    roles inside each bucket chain)."""
     nb, b = L.nb, L.b
     xb = x.reshape(nb, b, *x.shape[1:])
     yb = _diag_apply(L.D, xb, trans)
-    if nb > 1:
-        rows, cols = _pair_index(nb, xb.device)
-        if not trans:
-            yb.index_add_(0, rows, _chain(L.U, L.V, xb[cols]))
-        else:
-            yb.index_add_(0, cols, _chain(L.V, L.U, xb[rows]))
+    if nb == 1:
+        return yb.reshape(x.shape)
+    if resolve_batching(batching, L.ranks, L.r_max) == "ranked":
+        plan = tile_plan(L.ranks, L.r_max)
+        for bk, (idx, rows, cols, valid) in zip(
+                plan.buckets, _plan_gathers(plan, nb, xb.device)):
+            if not trans:
+                _plan_chain(L.U, L.V, xb, yb, idx, cols, rows, valid,
+                            bk.width)
+            else:
+                # (L^T)(j,i) = L(i,j)^T = V U^T: swap the factor roles.
+                _plan_chain(L.V, L.U, xb, yb, idx, rows, cols, valid,
+                            bk.width)
+        return yb.reshape(x.shape)
+    rows, cols = _pair_index(nb, xb.device)
+    if not trans:
+        yb.index_add_(0, rows, _chain(L.U, L.V, xb[cols]))
+    else:
+        yb.index_add_(0, cols, _chain(L.V, L.U, xb[rows]))
     return yb.reshape(x.shape)
 
 
@@ -100,9 +184,27 @@ def _trsv_column_tiles(nb: int, k: int, trans: bool):
     return tiles, tgt
 
 
+def _trsv_bucket_widths(plan, nb: int, trans: bool, ladder) -> dict[int, int]:
+    """One plan width per row-bucket interval: the ladder width covering
+    every rank any column in that Tb bucket touches, so one (Tb, w) step
+    shape per ladder entry and direction -- the flat path's count -- while
+    narrow intervals still run at their own narrow widths. Memoized on the
+    plan, like :func:`_plan_gathers`."""
+    def make():
+        widths: dict[int, int] = {}
+        for k in range(nb):
+            tiles, tgt = _trsv_column_tiles(nb, k, trans)
+            Tb = _bucket_up(max(len(tgt), 1), ladder)
+            cw = int(plan.widths[tiles].max(initial=0)) if len(tiles) else 0
+            widths[Tb] = max(widths.get(Tb, 1), cw, 1)
+        cap = max(int(plan.cap), 1)
+        return {Tb: min(w, cap) for Tb, w in widths.items()}
+    return plan_memo(plan, ("trsv_widths", nb, trans), make)
+
+
 @lru_cache(maxsize=64)
 def _trsv_column_steps(nb: int, trans: bool, device: torch.device):
-    """Bucket-padded index operands ``(k, tidx, ridx, valid)`` of every
+    """Bucket-padded index operands ``(Tb, k, tidx, ridx, valid)`` of every
     column step in sweep order, uploaded once per (nb, direction, device)."""
     ladder = _bucket_ladder(nb - 1)
     order = range(nb) if not trans else range(nb - 1, -1, -1)
@@ -116,18 +218,24 @@ def _trsv_column_steps(nb: int, trans: bool, device: torch.device):
         tidx[:T], ridx[:T] = tiles, tgt
         valid = np.zeros(Tb, bool)
         valid[:T] = True
-        steps.append((k, torch.as_tensor(tidx, device=device),
+        steps.append((Tb, k, torch.as_tensor(tidx, device=device),
                       torch.as_tensor(ridx, device=device),
                       torch.as_tensor(valid, device=device)))
     return tuple(steps)
 
 
-def _trsm_step(L: TLRMatrix, xb, k, tidx, ridx, valid, trans: bool):
+def _trsm_step(L: TLRMatrix, xb, k, tidx, ridx, valid, trans: bool,
+               w: int):
     """One blocked-TRSM column (in place on ``xb``, shape (nb, b, m)):
     solve the diagonal block, then subtract the low-rank update from the
-    remaining blocks. Padded slots carry a zero update into block 0."""
+    remaining blocks. ``w`` is the column's plan width (``r_max`` on the
+    flat path): the U/V gathers take only that many columns. Padded slots
+    carry a zero update into block 0."""
     Dk = L.D[k]
-    Ut, Vt = L.U[tidx], L.V[tidx]
+    if w < L.r_max:
+        Ut, Vt = L.U[:, :, :w][tidx], L.V[:, :, :w][tidx]
+    else:
+        Ut, Vt = L.U[tidx], L.V[tidx]
     if trans:
         # (L^T)(j,k) = L(k,j)^T = V U^T: the U/V roles swap in the update.
         Dk = Dk.T
@@ -140,18 +248,27 @@ def _trsm_step(L: TLRMatrix, xb, k, tidx, ridx, valid, trans: bool):
 
 
 def tlr_trsv(L: TLRMatrix, y: torch.Tensor, *, trans: bool = False,
-             batching: str | None = "flat") -> torch.Tensor:
+             batching: str | None = "auto") -> torch.Tensor:
     """Solve L x = y (trans=False) or L^T x = y (trans=True). Algorithm 7.
-    ``y`` is a single right-hand side ``(n,)`` or a batch ``(n, m)``."""
-    _check_batching(batching)
+    ``y`` is a single right-hand side ``(n,)`` or a batch ``(n, m)``.
+
+    ``batching="ranked"`` slices each column step's U/V gathers to the
+    plan width of its row-bucket interval (:func:`_trsv_bucket_widths`);
+    ``"flat"`` runs every step r_max-wide; ``"auto"`` (default) applies the
+    rank-histogram policy."""
     nb, b = L.nb, L.b
     xb = y.reshape(nb, b, -1).clone()
     if nb == 1:
         xb[0] = torch.linalg.solve_triangular(
             L.D[0].T if trans else L.D[0], xb[0], upper=trans)
         return xb.reshape(y.shape)
-    for k, tidx, ridx, valid in _trsv_column_steps(nb, trans, xb.device):
-        _trsm_step(L, xb, k, tidx, ridx, valid, trans)
+    bucket_w = None
+    if resolve_batching(batching, L.ranks, L.r_max) == "ranked":
+        bucket_w = _trsv_bucket_widths(tile_plan(L.ranks, L.r_max), nb,
+                                       trans, _bucket_ladder(nb - 1))
+    for Tb, k, tidx, ridx, valid in _trsv_column_steps(nb, trans, xb.device):
+        w = bucket_w[Tb] if bucket_w is not None else L.r_max
+        _trsm_step(L, xb, k, tidx, ridx, valid, trans, w)
     return xb.reshape(y.shape)
 
 

@@ -26,9 +26,9 @@ import torch
 from . import build
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.reset_launch_counts)
-# launches per (T, J) shape since the last reset: the column buckets of the
-# left-looking factorization
-SHAPES: dict[tuple[int, int], int] = {}
+# launches per (T, J, r) shape since the last reset: the column buckets of
+# the left-looking factorization at the width the kernel reads
+SHAPES: dict[tuple[int, int, int], int] = {}
 
 # Kernel configurations, as ``config`` in csrc/lr_sample.cu numbers them.
 FMA, DMMA = 0, 1
@@ -92,7 +92,7 @@ def lr_sample_cuda(Ui: torch.Tensor, Vi: torch.Tensor, W2: torch.Tensor,
              T, k, b, r, ldr, s, cfg, build.stream_handle(Ui))
     build.check("lr_sample", err)
     LAUNCHES += 1
-    SHAPES[(T, k)] = SHAPES.get((T, k), 0) + 1
+    SHAPES[(T, k, r)] = SHAPES.get((T, k, r), 0) + 1
     return Y
 
 

@@ -50,5 +50,6 @@ def reset_launch_counts() -> None:
         mod.LAUNCHES = 0
     _bg.SHAPES.clear()
     _lr.SHAPES.clear()
+    _tc.SHAPES.clear()
     _qr.SHAPES.clear()
     _svd.SHAPES.clear()

@@ -24,6 +24,8 @@ import torch
 from . import build
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.reset_launch_counts)
+# launches per (T, b, r, s) shape since the last reset, r the width read
+SHAPES: dict[tuple[int, int, int, int], int] = {}
 
 # Kernel configurations, as ``config`` in csrc/tile_chain.cu numbers them.
 NARROW, WIDE, DMMA = 0, 1, 2
@@ -78,6 +80,7 @@ def tile_chain_cuda(U: torch.Tensor, V: torch.Tensor, X: torch.Tensor,
              T, b, r, ldr, s, cfg, build.stream_handle(U))
     build.check("tile_chain", err)
     LAUNCHES += 1
+    SHAPES[(T, b, r, s)] = SHAPES.get((T, b, r, s), 0) + 1
     return out
 
 

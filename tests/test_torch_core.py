@@ -153,8 +153,11 @@ def test_matvec_matches_jax(nrhs):
                                atol=1e-12)
     np.testing.assert_allclose(got.numpy(), A.to_dense().numpy() @ x,
                                rtol=1e-12, atol=1e-12)
-    with pytest.raises(ValueError, match="only 'flat'"):
-        solve.tlr_matvec(A, torch.from_numpy(x), batching="ranked")
+    ranked = solve.tlr_matvec(A, torch.from_numpy(x), batching="ranked")
+    np.testing.assert_allclose(ranked.numpy(), np.asarray(want), rtol=1e-12,
+                               atol=1e-12)
+    with pytest.raises(ValueError, match="batching"):
+        solve.tlr_matvec(A, torch.from_numpy(x), batching="bucketed")
 
 
 @pytest.mark.parametrize("trans", [False, True])

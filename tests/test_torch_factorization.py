@@ -138,9 +138,14 @@ def test_unported_options_raise(problem):
                        NotImplementedError),
                       (CholOptions(pivot="frobenius"), NotImplementedError),
                       (CholOptions(check=True), NotImplementedError),
-                      (CholOptions(batching="auto"), ValueError)):
+                      (CholOptions(batching="bucketed"), ValueError)):
         with pytest.raises(err):
             tlr_cholesky(At, opts)
+    # "auto" (the default) and "ranked" are ported and run
+    assert CholOptions().batching == "auto"
+    fact = tlr_cholesky(At, CholOptions(eps=1e-6, bs=8, batching="ranked"))
+    assert fact.stats["batching"] == "ranked"
+    assert fact.stats["policy"]["requested"] == "ranked"
 
 
 def test_modified_cholesky_fallback():

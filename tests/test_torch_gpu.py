@@ -198,7 +198,7 @@ def test_cuda_lr_sample_f64_tensor_cores(cuda_device, T, J, s):
     assert float((got - want).abs().max()) <= atol
     assert float((fault - want).abs().max()) > atol
     assert ops.launch_counts()["lr_sample"] == 1
-    assert tlr.SHAPES == {(T, J): 1}
+    assert tlr.SHAPES == {(T, J, width): 1}
 
 
 @pytest.mark.gpu

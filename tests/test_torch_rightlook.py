@@ -1,6 +1,7 @@
-"""The port's right-looking TLR Cholesky / LDL^T (flat batching, sequential
-schedule), mirroring tests/test_rightlook.py, plus parity with the JAX
-package's right-looking driver on the same tiles.
+"""The port's right-looking TLR Cholesky / LDL^T (sequential schedule),
+mirroring tests/test_rightlook.py, plus parity with the JAX package's
+right-looking driver on the same tiles (flat batching here; the ranked
+driver is held to JAX's in tests/test_torch_batching.py).
 
 The port runs its plain kernel versions here (``device="cpu"``): MGS2 QR
 and row-cyclic Jacobi SVD in the rounding passes, where the JAX package's
@@ -140,8 +141,10 @@ def test_right_rejects_unported_and_invalid_options():
         op.cholesky(CholOptions(algo="right", lookahead=True))
     with pytest.raises(NotImplementedError, match="check"):
         op.cholesky(CholOptions(algo="right", check=True))
-    with pytest.raises(ValueError, match="flat"):
-        op.cholesky(CholOptions(algo="right", batching="ranked"))
+    with pytest.raises(ValueError, match="batching"):
+        op.cholesky(CholOptions(algo="right", batching="bucketed"))
+    fr = op.cholesky(CholOptions(algo="right", batching="ranked"))
+    assert fr.stats["batching"] == "ranked"
     for call in (op.cholesky, op.ldlt):
         with pytest.raises(ValueError, match="algo"):
             call(CholOptions(algo="up"))

@@ -536,7 +536,8 @@ def test_operator_round_matches_jax():
 def test_round_densify_branch_and_unported_options():
     """A TLRMatrix wider than its tile takes the densify branch of
     ``tlr_round`` (rank-masked by ``A.ranks``) and matches the JAX
-    package's; rank-bucketed batching raises."""
+    package's, flat, ranked (densify buckets) and auto alike; an unknown
+    ``batching`` raises."""
     _, K = covariance_problem(128, 2, 16)
     jop = JOperator.compress(jnp.asarray(K), 16, 16, 1e-9)
     A = jop.A
@@ -553,5 +554,9 @@ def test_round_densify_branch_and_unported_options():
     np.testing.assert_allclose(pr.to_dense().numpy(),
                                np.asarray(jr.to_dense()), atol=1e-10)
     for batching in ("ranked", "auto"):
-        with pytest.raises(NotImplementedError):
-            op.round(1e-6, batching=batching)
+        rr = op.round(1e-7, batching=batching)
+        np.testing.assert_array_equal(rr.ranks.numpy(), np.asarray(jr.ranks))
+        np.testing.assert_allclose(rr.to_dense().numpy(),
+                                   np.asarray(jr.to_dense()), atol=1e-10)
+    with pytest.raises(ValueError, match="batching"):
+        op.round(1e-6, batching="bucketed")
