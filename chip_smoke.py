@@ -26,7 +26,19 @@ before it and read just after:
    widths, peak memory, ``small_svd``'s launches per (T, m, n),
    ``batched_qr``'s per (T, b, r) and ``batched_gemm``'s per (T, m, k, n)
    with their mean live rank and, timed apart, launches x kernel ms
-   against the bound per shape.
+   against the bound per shape;
+4. the fractional-diffusion PCG path (paper section 6.2): the 3-D
+   operator at N = 32768, tile 512 built on the card, compressed at 1e-10,
+   ``tlr_add_diag(op.A, eps)`` factored by the left-looking Cholesky at
+   eps = 1e-2 and 1e-4, each used by ``pcg`` as the preconditioner of the
+   compressed operator, then unpreconditioned ``pcg``; gated on the final
+   relative residual (< 1e-6), ``||K x - b|| / ||b|| < 1e-5`` against the
+   dense K, and fewer iterations at 1e-2 than without, no more at 1e-4;
+5. the Newton-Schulz path: the same generator at N = 8192, tile 128,
+   ``tlr_newton_schulz`` (norm scaling, eps 1e-8) after 4 and 8
+   iterations, and ranked after 8; gated on fewer PCG iterations than
+   plain CG, the residual, ranked within 1e-8 of flat, and one
+   ``op.compose(op, 1e-8)`` within 1e-6 of the dense ``K @ K``.
 
 Then it holds each kernel against its plain PyTorch version on the card
 (f64, f32 and bf16; f64 and f32 for the QR and SVD) at the paths' shapes
@@ -38,10 +50,12 @@ spectrum whose unsorted factors must match the plain version's rotations,
 ``batched_qr`` on graded tiles like the right driver's densified ones under
 the QR contract), checks that each gate rejects a planted fault and that
 two kernel calls agree bit for bit, and checks a small end-to-end run on
-the card against the same run on the CPU (flat and ranked). The kernels
+the card against the same run on the CPU (flat and ranked; and both
+fractional-diffusion preconditioners at n = 512, tile 64). The kernels
 are also held at the rank-bucket widths of ranked batching (width 1 to
-128, zero-tile count padding) and at each kernel's widest bucket on its
-ranked path. Kernel times are CUDA events
+128, zero-tile count padding), at each kernel's widest bucket on its
+ranked path and at each kernel's widest shape on the two
+fractional-diffusion paths. Kernel times are CUDA events
 over back-to-back calls; a sampling kernel's case under DISPATCH_MS is
 also timed from a CUDA graph (``graph_ms`` and its kin beside ``ms``),
 since the host's dispatch sets the pace of back-to-back calls there.
@@ -49,7 +63,8 @@ since the host's dispatch sets the pace of back-to-back calls there.
 Run from the root of a checkout:  python3 chip_smoke.py
 (``--n`` cuts the main path's size for a quick look;
 ``--profile DIR`` adds torch.profiler tables of the left-looking and the
-right-looking Cholesky.)
+right-looking Cholesky, the fractional-diffusion Cholesky at eps 1e-2 and
+the 8-iteration Newton-Schulz build.)
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout. Imports nothing of JAX or of the JAX package.
@@ -82,6 +97,18 @@ TILE, R_MAX, EPS = 512, 128, 1e-6
 # right-looking benchmark's, benchmarks/bench_tlr.py:312; nb = 64, the main
 # path's 2016 tiles), r_max 128, same eps.
 N_RIGHT, TILE_RIGHT = 8192, 128
+# The fractional-diffusion PCG path (paper section 6.2, Figs. 9/10): the 3-D
+# operator of ``fractional_diffusion_problem`` on the full 32^3 grid (the
+# largest power-of-two cube whose dense f64 K, 8.6 GB, sits on the card
+# beside the compression's workspace; the paper's N = 2^17 needs 137 GB),
+# s = 0.75, tile 512, compressed at 1e-10 with r_max = tile; PCG to 1e-6
+# preconditioned by the TLR Cholesky of K + eps I at each eps of FRAC_EPS.
+FRAC_N, FRAC_TILE, FRAC_S, FRAC_EPS = 32768, 512, 0.75, (1e-2, 1e-4)
+# The Newton-Schulz path: the same generator at N = 8192, tile 128 (nb = 64;
+# at tile 512 every tlr_gemm output tile is a dense 512^2 SVD), compressed
+# at 1e-10; the inverse at eps 1e-8 with norm scaling after each iteration
+# count of NS_ITERS (the example's defaults).
+NS_N, NS_TILE, NS_EPS, NS_ITERS = 8192, 128, 1e-8, (4, 8)
 # Kernel against plain version: max abs error <= TOL * max |plain output|
 # (the tolerances of tests/test_kernels.py, relative to the output's scale),
 # for every output of the kernel. small_svd is held at TOL_SCALE = 10 times
@@ -250,9 +277,9 @@ def kernel_cases(torch, ranks_a, device="cuda", ranked=None):
     3 I so that Q is well conditioned (a random square panel's Q moves by
     cond x rounding); ``QR_GRADED`` takes graded covariance tiles under
     the QR contract instead. ``fault`` is the plain version with one rank
-    (``batched_gemm``), one factor column (``tile_chain``: ``width`` one
-    less), the last j term (``lr_sample``), the
-    last column (``batched_qr``) or seven of the eight sweeps
+    (``batched_gemm``; one term of a K-reduction), one factor column
+    (``tile_chain``: ``width`` one less), the last j term (``lr_sample``),
+    the last column (``batched_qr``) or seven of the eight sweeps
     (``small_svd``) dropped: a result the gate must reject. The
     "same rotations" case holds the unsorted s, U and V of a well-separated
     spectrum elementwise, column signs matched as ``SAME_ROTATIONS_ATOL``
@@ -285,10 +312,10 @@ def kernel_cases(torch, ranks_a, device="cuda", ranked=None):
                         dtype=torch.float32) * scale
         return x.to(dtype)
 
-    def bgemm(m, k, n, ranks, garbage=False):
+    def bgemm(m, k, n, ranks, garbage=False, drop=1):
         # garbage: A's columns and B's rows past each rank hold +-1e6, which
         # the plain version masks by multiplication and the kernel must
-        # never read
+        # never read; drop: the columns of each rank the fault leaves out
         def make(dtype):
             T = ranks.shape[0]
             A = randn((T, m, k), dtype)
@@ -304,7 +331,8 @@ def kernel_cases(torch, ranks_a, device="cuda", ranked=None):
                     < ranks[:, None]).to(dtype)
             return (lambda: bg.batched_gemm_cuda(A, B, ranks),
                     lambda: bg.batched_gemm_plain(A, B, ranks),
-                    lambda: bg.batched_gemm_plain(A, B, (ranks - 1).clamp(0)),
+                    lambda: bg.batched_gemm_plain(A, B,
+                                                  (ranks - drop).clamp(0)),
                     lambda: torch.einsum("tmk,tk,tkn->tmn", A, mask, B),
                     (m * rs + n * rs + T * m * n) * isz + 4 * T,
                     2.0 * m * n * rs, None)
@@ -455,9 +483,15 @@ def kernel_cases(torch, ranks_a, device="cuda", ranked=None):
                 Tr, b, r, sc = shape
                 out.append((name, label, False, chain(Tr, b, r, sc)))
             elif name == "batched_gemm":
+                # On frac_ns a call wider than the own-term assembly (k >
+                # m + n) is tlr_gemm's K-reduction over concatenated terms of
+                # n columns: its fault drops the last term, since one column
+                # of 8064 hides inside bf16's tolerance.
                 Tr, m, k, n = shape
+                drop = n if path == "frac_ns" and k > m + n else 1
                 out.append((name, label, False, bgemm(
-                    m, k, n, full(Tr, k) if ranks is None else ranks)))
+                    m, k, n, full(Tr, k) if ranks is None else ranks,
+                    drop=drop)))
             elif name == "batched_qr":
                 Tr, b, r = shape
                 out.append((name, label, False,
@@ -808,6 +842,46 @@ def small_parity() -> None:
             f"diff {rel_x:.3e}")
         assert rel <= 1e-8 and rel_x <= 1e-8, \
             f"{batching}: card and CPU runs disagree"
+    frac_parity()
+
+
+def frac_parity() -> None:
+    """Both fractional-diffusion preconditioners on the card and on the CPU
+    (n = 512, tile 64, the same compressed operator): the loose-eps
+    Cholesky of ``tlr_add_diag(op.A, 1e-2)`` and two Newton-Schulz
+    iterations (norm scaling, eps 1e-8; the CPU runs the plain Jacobi SVD,
+    which sets the count). Gates: equal PCG iterations with each, and the
+    Newton-Schulz X within 1e-10 (relative, Frobenius)."""
+    import numpy as np
+    import torch
+    from repro_torch import CholOptions, TLROperator, pcg, tlr_newton_schulz
+    from repro_torch.convert import operator_from_numpy
+    from repro_torch.core import (fractional_diffusion_matrix,
+                                  fractional_diffusion_points, tlr_add_diag)
+
+    n, tile, eps = 512, 64, 1e-2
+    K = fractional_diffusion_matrix(fractional_diffusion_points(n, tile),
+                                    device="cuda")
+    op = {"cuda": TLROperator.compress(K, tile, eps=1e-10)}
+    op["cpu"] = operator_from_numpy(*(t.cpu().numpy() for t in (
+        op["cuda"].A.D, op["cuda"].A.U, op["cuda"].A.V, op["cuda"].A.ranks)),
+        device="cpu")
+    rhs = torch.as_tensor(np.random.default_rng(0).standard_normal(n))
+    it, X = {}, {}
+    for dev, o in op.items():
+        b = rhs.to(dev)
+        fact = TLROperator(tlr_add_diag(o.A, eps)).cholesky(
+            CholOptions(eps=eps, bs=16))
+        Xop, _ = tlr_newton_schulz(o, iters=2, eps=1e-8, scale="norm")
+        it[dev] = (pcg(o, b, precond=fact, tol=1e-6, maxiter=300)[1],
+                   pcg(o, b, precond=Xop, tol=1e-6, maxiter=300)[1])
+        X[dev] = Xop.to_dense().cpu()
+    rel = float((X["cuda"] - X["cpu"]).norm() / X["cpu"].norm())
+    log(f"small parity frac n={n} tile={tile}: pcg iterations (Cholesky "
+        f"eps={eps:g}, Newton-Schulz) card {it['cuda']}, CPU {it['cpu']}; "
+        f"Newton-Schulz X card vs CPU rel {rel:.3e} (gate 1e-10)")
+    assert it["cuda"] == it["cpu"] and rel <= 1e-10, \
+        "frac: card and CPU preconditioners disagree"
 
 
 # -- phase 5: the main path at full width --------------------------------------------------
@@ -1368,6 +1442,211 @@ def right_phase(n: int, profile: str | None) -> dict:
     return out
 
 
+# -- phase 8: the fractional-diffusion PCG path (paper section 6.2) ---------------
+
+
+def rank_histogram(ranks, cap: int) -> str:
+    """Tiles per rank range: 0, 1-16, 17-32, 33-64, ... up to ``cap``."""
+    r = ranks.cpu()
+    edges = [0, 1, 17]
+    while edges[-1] <= cap:
+        edges.append(2 * edges[-1] - 1)
+    parts = []
+    for lo, hi in zip(edges, edges[1:]):
+        count = int(((r >= lo) & (r < hi)).sum())
+        if count:
+            parts.append(f"{lo}" + (f"-{min(hi - 1, cap)}" if hi - 1 > lo
+                                    else "") + f": {count}")
+    return ", ".join(parts)
+
+
+def frac_pcg_phase(profile: str | None = None) -> dict:
+    """The 3-D fractional-diffusion operator (``FRAC_N``, tile
+    ``FRAC_TILE``) built on the card and compressed at 1e-10 with r_max =
+    tile; for each eps of ``FRAC_EPS``, ``tlr_add_diag(op.A, eps)`` factored
+    by the left-looking Cholesky (``CholOptions(eps=eps, bs=16)``, batching
+    "auto"; a diagonal shift leaves every off-diagonal tile as it is, so
+    this is exactly the compression of K + eps I) and used by ``pcg`` as
+    the preconditioner of the compressed operator; then ``pcg`` without
+    one. Gates: final relative residual below 1e-6 and ``||K x - b|| /
+    ||b|| < 1e-5`` with the dense K for each preconditioned solve; fewer
+    iterations at 1e-2 than without, no more at 1e-4 than at 1e-2. With
+    ``profile``, the factorization at the first eps runs under
+    torch.profiler (``timed``)."""
+    import numpy as np
+    import torch
+    from repro_torch import CholOptions, TLROperator, pcg
+    from repro_torch.core import (fractional_diffusion_matrix,
+                                  fractional_diffusion_points, tlr_add_diag)
+    from repro_torch.kernels import ops
+
+    n, tile = FRAC_N, FRAC_TILE
+    pts = fractional_diffusion_points(n, tile)
+    torch.cuda.reset_peak_memory_stats()
+    K, t_build = sync_time(lambda: fractional_diffusion_matrix(
+        pts, s=FRAC_S, device="cuda"))
+    log(f"frac pcg: 3-D fractional diffusion N={n} s={FRAC_S} tile={tile} "
+        f"(nb={n // tile}) built on the card in {t_build:.2f} s (peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    ops.reset_launch_counts()
+    with gemm_rank_log() as gemm_calls:
+        op, t_comp = sync_time(lambda: TLROperator.compress(K, tile,
+                                                            eps=1e-10))
+        ra = op.A.ranks
+        log(f"frac pcg: compress eps=1e-10 r_max={op.r_max} in {t_comp:.2f} "
+            f"s; A ranks max {int(ra.max())} mean "
+            f"{float(ra.float().mean()):.2f}, histogram "
+            f"{rank_histogram(ra, op.r_max)}")
+        assert int(ra.max()) < op.r_max, "frac pcg: compression clipped"
+        rhs = torch.as_tensor(np.random.default_rng(0).standard_normal(n),
+                              device="cuda")
+        bnorm = float(rhs.norm())
+        iters = {}
+        for eps in FRAC_EPS:
+            torch.cuda.reset_peak_memory_stats()
+            op_eps = TLROperator(tlr_add_diag(op.A, eps))
+            fact, t_fact = timed(lambda: op_eps.cholesky(
+                CholOptions(eps=eps, bs=16)),
+                profile if eps == FRAC_EPS[0] else None, "frac_factor")
+            peak = torch.cuda.max_memory_allocated()
+            (x, it, hist), t_pcg = sync_time(lambda: pcg(
+                op, rhs, precond=fact, tol=1e-6, maxiter=300))
+            true = float((K @ x - rhs).norm()) / bnorm
+            left_summary(fact, f"frac pcg eps={eps:g}", op.r_max)
+            log(f"frac pcg eps={eps:g}: factor {t_fact:.3f} s (peak "
+                f"{peak / 2**30:.2f} GiB), batching {fact.stats['batching']}"
+                f"; pcg {it} iterations in {t_pcg:.3f} s, relative "
+                f"residual {hist[-1]:.3e} (gate 1e-6), ||K x - b||/||b|| "
+                f"{true:.3e} (gate 1e-5), breakdown {hist.breakdown}")
+            assert hist.breakdown is None and hist[-1] < 1e-6, \
+                f"frac pcg eps={eps:g}: pcg did not converge"
+            assert true < 1e-5, f"frac pcg eps={eps:g}: K x far from b"
+            iters[eps] = it
+            del fact, op_eps, x
+        (x, it_plain, hist), t_plain = sync_time(lambda: pcg(
+            op, rhs, tol=1e-6, maxiter=300))
+    launches = ops.launch_counts()
+    shapes = path_shapes()
+    shapes["batched_gemm"] = gemm_shapes(gemm_calls)
+    log(f"frac pcg: unpreconditioned pcg {it_plain} iterations in "
+        f"{t_plain:.3f} s, relative residual {hist[-1]:.3e}; iterations "
+        f"{json.dumps({f'{e:g}': i for e, i in iters.items()})}; launches "
+        f"{json.dumps(launches)}")
+    for name in ("lr_sample", "tile_chain"):
+        log(f"frac pcg: {name} launches per shape: "
+            f"{shapes_line(shapes[name])}")
+    log(f"frac pcg: batched_gemm launches per (T, m, k, n): "
+        f"{gemm_shapes_line(shapes['batched_gemm'])}")
+    for name in MAIN_KERNELS:
+        assert launches[name] > 0, f"frac pcg: {name} was not launched"
+    e1, e2 = FRAC_EPS
+    assert iters[e1] < it_plain, \
+        f"frac pcg: eps={e1:g} took {iters[e1]} iterations, plain {it_plain}"
+    assert iters[e2] <= iters[e1], \
+        f"frac pcg: eps={e2:g} took more iterations than eps={e1:g}"
+    del op, K, x
+    torch.cuda.empty_cache()
+    return {"launches": launches, "shapes": shapes}
+
+
+# -- phase 9: the Newton-Schulz TLR inverse as preconditioner --------------------
+
+
+def frac_ns_phase(profile: str | None = None) -> dict:
+    """The fractional-diffusion operator at ``NS_N``, tile ``NS_TILE``,
+    compressed at 1e-10; ``tlr_newton_schulz(op, iters, eps=NS_EPS,
+    scale="norm")`` for each count of ``NS_ITERS`` (flat, the default) and
+    ranked at the last, each used by ``pcg``; one ``op.compose(op,
+    NS_EPS)``. Gates: each Newton-Schulz PCG ends below 1e-6, and the best
+    takes fewer iterations than plain PCG (the example's ``--check``); ranked X within 1e-8 of flat (relative,
+    Frobenius); the composed product within 1e-6 of the dense ``K @ K``
+    (relative, Frobenius). The product is compressed at NS_EPS: the
+    threshold is absolute and per tile, and the tiles of K @ K keep
+    singular values above 1e-6 far down their spectra, so at 1e-6 the
+    truncation alone would leave more than 1e-6 of ||K @ K||. With
+    ``profile``, the
+    flat build at the last iteration count runs under torch.profiler."""
+    import numpy as np
+    import torch
+    from repro_torch import TLROperator, pcg, tlr_newton_schulz
+    from repro_torch.core import (fractional_diffusion_matrix,
+                                  fractional_diffusion_points)
+    from repro_torch.core.algebra import gemm_chunks
+    from repro_torch.kernels import ops
+
+    n, tile = NS_N, NS_TILE
+    K = fractional_diffusion_matrix(fractional_diffusion_points(n, tile),
+                                    s=FRAC_S, device="cuda")
+    ops.reset_launch_counts()
+    with gemm_rank_log() as gemm_calls:
+        op, t_comp = sync_time(lambda: TLROperator.compress(K, tile,
+                                                            eps=1e-10))
+        ra = op.A.ranks
+        log(f"frac ns: 3-D fractional diffusion N={n} tile={tile} "
+            f"(nb={op.nb}); compress eps=1e-10 in {t_comp:.2f} s, A ranks "
+            f"max {int(ra.max())} mean {float(ra.float().mean()):.2f} "
+            f"(r_max {op.r_max}); tlr_gemm middle terms in "
+            f"{gemm_chunks(op.nb, tile, op.r_max, op.r_max)} chunks of "
+            f"output tiles (flat)")
+        assert int(ra.max()) < op.r_max, "frac ns: compression clipped"
+        rhs = torch.as_tensor(np.random.default_rng(0).standard_normal(n),
+                              device="cuda")
+        (_, it_plain, hist), t_plain = sync_time(lambda: pcg(
+            op, rhs, tol=1e-6, maxiter=300))
+        log(f"frac ns: unpreconditioned pcg {it_plain} iterations in "
+            f"{t_plain:.3f} s, relative residual {hist[-1]:.3e}")
+        X, best = {}, it_plain
+        for iters, batching in [(i, "flat") for i in NS_ITERS] + [
+                (NS_ITERS[-1], "ranked")]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            (Xop, info), t_build = timed(lambda: tlr_newton_schulz(
+                op, iters=iters, eps=NS_EPS, scale="norm",
+                batching=batching), profile if (iters, batching) == (
+                    NS_ITERS[-1], "flat") else None, "frac_ns_build")
+            peak = torch.cuda.max_memory_allocated()
+            (x, it, hist), t_pcg = sync_time(lambda: pcg(
+                op, rhs, precond=Xop, tol=1e-6, maxiter=300))
+            log(f"frac ns iters={iters} {batching}: build {t_build:.3f} s "
+                f"(peak {peak / 2**30:.2f} GiB), alpha {info.alpha:.6e}, X "
+                f"ranks mean {info.avg_rank:.2f} max {info.max_rank}; pcg "
+                f"{it} iterations in {t_pcg:.3f} s (plain {it_plain}), "
+                f"relative residual {hist[-1]:.3e}")
+            assert hist.breakdown is None and hist[-1] < 1e-6, \
+                f"frac ns iters={iters} {batching}: pcg did not converge"
+            best = min(best, it)
+            X[(iters, batching)] = Xop.to_dense()
+            del Xop, x
+        Xf, Xr = X[(NS_ITERS[-1], "flat")], X[(NS_ITERS[-1], "ranked")]
+        rel_x = float((Xr - Xf).norm() / Xf.norm())
+        del X, Xf, Xr
+        C, t_comp2 = sync_time(lambda: op.compose(op, NS_EPS))
+        KK = K @ K
+        rel_c = float((C.to_dense() - KK).norm() / KK.norm())
+    launches = ops.launch_counts()
+    shapes = path_shapes()
+    shapes["batched_gemm"] = gemm_shapes(gemm_calls)
+    cr = C.ranks.float()
+    log(f"frac ns: ranked X vs flat rel {rel_x:.3e} (gate 1e-8); "
+        f"op.compose(op, {NS_EPS:g}) in {t_comp2:.3f} s, ranks max "
+        f"{int(cr.max())} mean {float(cr.mean()):.2f}, vs dense K @ K rel "
+        f"{rel_c:.3e} (gate 1e-6); launches {json.dumps(launches)}")
+    for name in ("batched_qr", "small_svd"):
+        log(f"frac ns: {name} launches per shape: "
+            f"{shapes_line(shapes[name])}")
+    log(f"frac ns: batched_gemm launches per (T, m, k, n): "
+        f"{gemm_shapes_line(shapes['batched_gemm'])}")
+    for name in ROUND_KERNELS:
+        assert launches[name] > 0, f"frac ns: {name} was not launched"
+    assert best < it_plain, \
+        f"frac ns: Newton-Schulz pcg took {best} iterations, plain {it_plain}"
+    assert rel_x <= 1e-8, "frac ns: ranked Newton-Schulz differs from flat"
+    assert rel_c <= 1e-6, "frac ns: op.compose(op) differs from K @ K"
+    del op, K, KK, C
+    torch.cuda.empty_cache()
+    return {"launches": launches, "shapes": shapes}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=32768)
@@ -1387,6 +1666,8 @@ def main() -> int:
     build_kernels()
     main = main_path(args.n, args.profile)
     right = right_phase(N_RIGHT, args.profile)
+    frac_pcg = frac_pcg_phase(args.profile)
+    frac_ns = frac_ns_phase(args.profile)
     # each kernel's widest rank bucket on the ranked paths that launch it:
     # the sampling kernels' on the ranked main path, QR's, SVD's and
     # batched_gemm's (at that call's live ranks) on the ranked
@@ -1403,6 +1684,22 @@ def main() -> int:
             ranks = (right_shapes[name][shape][2]
                      if name == "batched_gemm" else None)
             ranked[name].append(("right_cholesky_ranked", shape, ranks))
+    # each kernel's widest shape on the fractional-diffusion paths (the
+    # sampling kernels' at wA > 128 on frac_pcg; on frac_ns the K-reduction
+    # of batched_gemm and its widest call over all no = nb (nb - 1) output
+    # tiles, QR and SVD at T = no), at batched_gemm's live ranks
+    no = (NS_N // NS_TILE) * (NS_N // NS_TILE - 1)
+    for path, res, names in (("frac_pcg", frac_pcg, MAIN_KERNELS),
+                             ("frac_ns", frac_ns, ROUND_KERNELS)):
+        for name in names:
+            sh = res["shapes"][name]
+            picks = {widest_bucket(sh)}
+            if name == "batched_gemm" and path == "frac_ns":
+                picks.add(max((k for k in sh if k[0] == no),
+                              key=lambda k: k[2]))
+            for shape in sorted(picks):
+                ranked[name].append((path, shape, sh[shape][2]
+                                     if name == "batched_gemm" else None))
     log("widest rank buckets on the ranked paths: " + json.dumps(
         {name: [(path, shape) for path, shape, _ in cases]
          for name, cases in ranked.items()}))
@@ -1416,7 +1713,9 @@ def main() -> int:
                "round_ranked": main["round_ranked"][0],
                **{key: right[key] for key in (
                    "right_cholesky", "right_ldlt", "right_cholesky_ranked",
-                   "right_ldlt_ranked")}}
+                   "right_ldlt_ranked")},
+               "frac_pcg": frac_pcg["launches"],
+               "frac_ns": frac_ns["launches"]}
     log(f"main path batching: auto -> {main['batching']} (main_{other}: "
         f"the same operator factored with batching={other})")
     kernels = []

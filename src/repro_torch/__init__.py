@@ -3,8 +3,10 @@
 Compress a dense SPD operator into tile low rank form, round it, factor it
 with the left-looking ARA Cholesky or LDL^T or with the right-looking
 driver (flat, sequential), then solve, take log-determinants and draw
-samples -- on an NVIDIA Hopper card, with the five Pallas TPU kernels of
-the JAX package replaced by hand-written CUDA kernels (``kernels/csrc``).
+samples; compute with TLR matrices (GEMM, SYRK, axpy) and precondition
+PCG with a loose factorization or a Newton-Schulz TLR inverse -- on an
+NVIDIA Hopper card, with the five Pallas TPU kernels of the JAX package
+replaced by hand-written CUDA kernels (``kernels/csrc``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 where every kernel runs its plain PyTorch version. The package imports
@@ -16,9 +18,13 @@ from .device import pin_precision, resolve_device
 pin_precision()
 
 from .core import (CholOptions, TLRFactorization, TLRMatrix,  # noqa: E402
-                   TLROperator, covariance_problem, tlr_cholesky, tlr_ldlt)
+                   TLROperator, TLRTiles, covariance_problem,
+                   fractional_diffusion_problem, pcg, tlr_cholesky,
+                   tlr_ldlt, tlr_newton_schulz)
 
 __all__ = [
     "CholOptions", "TLRFactorization", "TLRMatrix", "TLROperator",
-    "covariance_problem", "resolve_device", "tlr_cholesky", "tlr_ldlt",
+    "TLRTiles", "covariance_problem", "fractional_diffusion_problem",
+    "pcg", "resolve_device", "tlr_cholesky", "tlr_ldlt",
+    "tlr_newton_schulz",
 ]

@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.algebra import TLRTiles
 from .core.operator import TLRFactorization, TLROperator
 from .core.tlr import TLRMatrix
 from .device import resolve_device
@@ -21,6 +22,13 @@ def tlr_from_numpy(D, U, V, ranks, device=None) -> TLRMatrix:
 
     return TLRMatrix(D=t(D), U=t(U), V=t(V),
                      ranks=t(np.asarray(ranks, np.int32)))
+
+
+def tiles_from_numpy(D, U, V, ranks, device=None) -> TLRTiles:
+    """A general (nonsymmetric) tile grid, such as the JAX package's
+    ``TLRTiles`` from ``tlr_gemm`` or ``TLROperator.compose``."""
+    A = tlr_from_numpy(D, U, V, ranks, device)
+    return TLRTiles(D=A.D, U=A.U, V=A.V, ranks=A.ranks)
 
 
 def operator_from_numpy(D, U, V, ranks, device=None) -> TLROperator:

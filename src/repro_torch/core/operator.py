@@ -5,10 +5,11 @@ solve/logdet/sample (section 6).
 
 * ``TLROperator`` wraps a ``TLRMatrix``: ``compress`` / ``from_dense`` /
   ``from_kernel`` (one batched SVD or batched ARA over all nt tiles),
-  ``matvec`` / ``@``, ``to_dense``, ``memory_stats``, ``round`` (the
-  batched rounding pass of ``core/algebra.py``), ``plan`` (the rank-bucket
-  execution plan of ``core/batching.py``), and ``cholesky`` / ``ldlt``
-  returning a factorization handle.
+  ``matvec`` / ``@``, ``to_dense``, ``memory_stats``, ``trace`` /
+  ``diagonal`` / ``diagonal_tiles``, the tile-algebra arithmetic (``+``,
+  ``-``, scalar ``*``, negation, ``compose``, ``round``; ``core/algebra.py``),
+  ``plan`` (the rank-bucket execution plan of ``core/batching.py``), and
+  ``cholesky`` / ``ldlt`` returning a factorization handle.
 * ``TLRFactorization`` is the result handle of the factorizations:
   ``solve``, ``tri_matvec``, ``tri_solve``, ``logdet`` and ``sample``.
 
@@ -215,6 +216,62 @@ class TLROperator:
 
     def memory_stats(self) -> dict:
         return self.A.memory_stats()
+
+    def diagonal_tiles(self) -> torch.Tensor:
+        return self.A.D
+
+    def trace(self) -> torch.Tensor:
+        """tr(A): the sum of the dense diagonal tiles' diagonals (the
+        Newton-Schulz scaling ``alpha = 1/trace``, core/precond.py)."""
+        return torch.einsum("kbb->", self.A.D)
+
+    def diagonal(self) -> torch.Tensor:
+        """diag(A) as an (n,) vector, from the dense diagonal tiles."""
+        return torch.einsum("kbb->kb", self.A.D).reshape(self.n)
+
+    # -- tile-algebra arithmetic (core/algebra.py) -------------------------
+
+    def __add__(self, other):
+        """A + B, exact low-rank concatenation (ranks add; call
+        :meth:`round` to recompress)."""
+        from .algebra import tlr_axpy
+
+        if isinstance(other, TLROperator):
+            return TLROperator(tlr_axpy(1.0, self.A, other.A))
+        return NotImplemented
+
+    def __sub__(self, other):
+        from .algebra import tlr_axpy
+
+        if isinstance(other, TLROperator):
+            return TLROperator(tlr_axpy(-1.0, other.A, self.A))
+        return NotImplemented
+
+    def __mul__(self, alpha):
+        from .algebra import tlr_scale
+
+        if isinstance(alpha, (int, float, np.number)) or (
+                isinstance(alpha, (torch.Tensor, np.ndarray))
+                and alpha.ndim == 0):
+            return TLROperator(tlr_scale(alpha, self.A))
+        return NotImplemented
+
+    __rmul__ = __mul__
+
+    def __neg__(self):
+        return self * -1.0
+
+    def compose(self, other, eps: float = 0.0, r_max_out=None, *,
+                batching: str = "auto"):
+        """C = A @ other as a general (nonsymmetric) ``TLRTiles`` grid,
+        compressed at ``eps`` (0.0 keeps everything up to the rank cap).
+        ``other`` is a ``TLROperator``, ``TLRMatrix`` or ``TLRTiles``.
+        ``batching="ranked"`` runs the accumulation chains at the
+        rank-bucketed widths; ``"auto"`` (default) lets the rank histogram
+        decide."""
+        from .algebra import tlr_gemm
+
+        return tlr_gemm(self.A, other, eps, r_max_out, batching=batching)
 
     def round(self, eps: float, r_max_out: Optional[int] = None, *,
               batching: str = "auto") -> "TLROperator":

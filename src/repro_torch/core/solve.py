@@ -1,7 +1,8 @@
 """TLR matrix-vector products and triangular solves (section 4.4, Alg. 7),
-log-determinant and MVN sampling.
+log-determinant, MVN sampling and preconditioned conjugate gradients.
 
-Port of the read paths of ``repro/core/solve.py`` (:47-390, :443-478).
+Port of the read paths of ``repro/core/solve.py`` (:47-390, :443-478) and
+its scalar ``pcg`` (:492-648; the batched ``BatchedPCG`` is not ported).
 Every read path dispatches through the :class:`~.batching.TilePlan` layer:
 the matvec marshals the off-diagonal tiles into batched two-product chains
 ``U (V^T x)`` plus a segment reduction (``index_add_``), either as one flat
@@ -343,3 +344,150 @@ def _mvn_sample_impl(fact, num: int = 1, *, generator=None,
     eperm = tile_perm_to_element_perm(fact.perm, fact.L.b)
     out = _unpermute_rows(x, eperm)
     return out[:, 0] if out.shape[1] == 1 else out
+
+
+# -- preconditioned conjugate gradients -----------------------------------------
+
+
+def _as_matvec(op):
+    """Coerce an operator argument to a matvec callable: a bare callable,
+    or any object with a ``.matvec`` (TLROperator; TLRFactorization, whose
+    operator action is A^{-1})."""
+    if op is None:
+        return None
+    if callable(op) and not hasattr(op, "matvec"):
+        return op
+    mv = getattr(op, "matvec", None)
+    if mv is not None:
+        return mv
+    raise TypeError(
+        f"expected a callable or an object with .matvec, got {type(op)!r}")
+
+
+class PCGHistory(list):
+    """Relative-residual history: a plain ``list`` of floats carrying
+    breakdown diagnostics. ``breakdown`` is None on a clean run, or the
+    condition that stopped the iteration early:
+
+    * ``"indefinite_curvature"``      -- p^T A p <= 0 (A not SPD),
+    * ``"indefinite_preconditioner"`` -- r^T M^{-1} r <= 0 (M not SPD),
+    * ``"nonfinite"``                 -- a NaN/Inf appeared in the recurrence.
+
+    On breakdown PCG returns the last finite iterate.
+    """
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.breakdown: str | None = None
+
+
+def pcg(A, b_rhs: torch.Tensor, *, precond=None, tol=1e-6,
+        maxiter: int = 300, check_every: int = 1):
+    """PCG with relative residual ||Ax-b||/||b|| stopping (section 6.2).
+
+    ``A`` and ``precond`` are callables ``v -> Av`` (resp. ``r -> M^{-1}r``)
+    or any object with a ``.matvec`` -- a ``TLROperator``, or a
+    ``TLRFactorization`` used directly as the preconditioner. Host-driven
+    loop on ``b_rhs``'s device; returns (x, iterations, history), where
+    ``history`` is a :class:`PCGHistory` whose ``breakdown`` records an
+    indefinite-operator / indefinite-preconditioner / non-finite breakdown
+    (the iteration stops at the last finite iterate). A zero right-hand
+    side returns x = 0 at once with an empty history.
+
+    ``check_every`` batches the convergence and breakdown checks: the
+    recurrence runs ``check_every`` iterations, then one host read
+    (``.cpu()`` of the stacked ``(p^T A p, ||r||, r^T z)`` of the window)
+    checks them all. The op sequence per iteration is the same for every
+    ``check_every``, so the history is bit for bit that of
+    ``check_every=1``; a window that trips a check part-way is replayed
+    from its start up to the event. The window is clamped to the
+    iterations remaining.
+
+    Only a single right-hand side ``(n,)`` is ported: the batched form
+    (``BatchedPCG``) comes with the server (ROADMAP Queue 1 item 6).
+    """
+    if b_rhs.dim() >= 2:
+        raise NotImplementedError(
+            "pcg with a 2-D right-hand side (BatchedPCG) is not ported yet "
+            "(ROADMAP Queue 1 item 6); pass one column at a time")
+    tol = float(tol)
+    matvec = _as_matvec(A)
+    precond = _as_matvec(precond)
+    check_every = max(1, int(check_every))
+    bnorm = float(torch.linalg.norm(b_rhs))
+    if bnorm == 0.0:
+        return torch.zeros_like(b_rhs), 0, PCGHistory()
+    x = torch.zeros_like(b_rhs)
+    r = b_rhs - matvec(x)
+    z = precond(r) if precond else r
+    p_dir = z
+    rz = torch.dot(r, z)
+    history = PCGHistory([float(torch.linalg.norm(r)) / bnorm])
+    rz_f = float(rz)
+    if not np.isfinite(rz_f) or rz_f <= 0.0:
+        history.breakdown = ("nonfinite" if not np.isfinite(rz_f)
+                             else "indefinite_preconditioner")
+        return x, 0, history
+
+    def step(x, r, p_dir, rz):
+        """One CG iteration: the new state and the check scalars (on the
+        device, unread)."""
+        Ap = matvec(p_dir)
+        pAp = torch.dot(p_dir, Ap)
+        alpha = rz / pAp
+        x_new = x + alpha * p_dir
+        r_new = r - alpha * Ap
+        rnorm = torch.linalg.norm(r_new)
+        z = precond(r_new) if precond else r_new
+        rz_new = torch.dot(r_new, z)
+        beta = rz_new / rz
+        p_new = z + beta * p_dir
+        return (x_new, r_new, p_new, rz_new), (pAp, rnorm, rz_new)
+
+    it = 0
+    state = (x, r, p_dir, rz)
+    done = False
+    while it < maxiter and not done:
+        steps = min(check_every, maxiter - it)
+        start = state
+        scalars = []
+        st = state
+        for _ in range(steps):
+            st, sc = step(*st)
+            scalars.append(torch.stack(sc))
+        # One host read for the whole window.
+        vals = torch.stack(scalars).cpu().numpy()
+        accepted = 0
+        for s in range(steps):
+            pAp, rnorm_raw, rz_new = (float(v) for v in vals[s])
+            if not np.isfinite(pAp) or pAp <= 0.0:
+                history.breakdown = ("nonfinite" if not np.isfinite(pAp)
+                                     else "indefinite_curvature")
+                done = True
+                break                       # iterate s discarded
+            rnorm = rnorm_raw / bnorm
+            if not np.isfinite(rnorm):
+                history.breakdown = "nonfinite"
+                done = True
+                break                       # iterate s discarded
+            accepted = s + 1
+            it += 1
+            history.append(rnorm)
+            if rnorm < tol:
+                done = True
+                break
+            if not np.isfinite(rz_new) or rz_new <= 0.0:
+                history.breakdown = ("nonfinite" if not np.isfinite(rz_new)
+                                     else "indefinite_preconditioner")
+                done = True
+                break                       # iterate s kept
+        if accepted == steps:
+            state = st
+        else:
+            # Replay the window up to the last accepted iterate: the same
+            # ops from the same inputs reproduce it exactly.
+            st = start
+            for _ in range(accepted):
+                st, _ = step(*st)
+            state = st
+    return state[0], it, history

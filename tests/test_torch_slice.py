@@ -3,7 +3,8 @@ quickstart path (covariance -> compress -> left-looking dynamic ARA
 Cholesky -> solve / logdet / sample / matvec) at n=512, tile 64, with the
 same probes on both sides; solving with a JAX-computed factor carried
 across through ``repro_torch.convert``; and the import rule (the port,
-chip_smoke.py and tools/*.py import neither jax nor repro).
+chip_smoke.py, tools/*.py and examples/*_torch.py import neither jax nor
+repro).
 
 Tolerances: the factorizations agree to ~1e-14 (see
 tests/test_torch_factorization.py), so solves, logdet and samples are held
@@ -123,7 +124,8 @@ def _imports(path: Path) -> set[str]:
 
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("*.py"))]
+    files += [ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("*.py")),
+              *sorted((ROOT / "examples").glob("*_torch.py"))]
     assert len(files) > 10
     for path in files:
         bad = _imports(path) & {"jax", "jaxlib", "repro"}
