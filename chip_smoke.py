@@ -38,7 +38,27 @@ before it and read just after:
    ``tlr_newton_schulz`` (norm scaling, eps 1e-8) after 4 and 8
    iterations, and ranked after 8; gated on fewer PCG iterations than
    plain CG, the residual, ranked within 1e-8 of flat, and one
-   ``op.compose(op, 1e-8)`` within 1e-6 of the dense ``K @ K``.
+   ``op.compose(op, 1e-8)`` within 1e-6 of the dense ``K @ K``;
+6. inter-tile pivoting (Algorithm 9) on the main path's compressed operator:
+   the left Cholesky with ``pivot="frobenius"`` and ``pivot="power"``,
+   gated on the randomized residual of ``P K P^T`` (100 eps) and a finite
+   solve, logging the pivot sequence and the time against the unpivoted
+   factorization; then ``check=True`` on the default left Cholesky, gated
+   within 1e-12 of the unchecked factor with no health event (its bitwise
+   status and the clean-path overhead logged);
+7. the right driver's lookahead schedule on the right path's operator:
+   Cholesky and LDL^T, flat and ranked, each after the sequential run of
+   the same options, gated within 1e-12 of it, on the right phase's
+   residual, a finite solve and the second CUDA stream, logging both times,
+   the bitwise status, peak memory, flushes, append widths and the first
+   stages of the order;
+8. the fault matrix of tests/test_health.py on the same operator with
+   ``check=True``: an indefinite diagonal tile near the end recovers (left,
+   right, right with lookahead; at column 2 the right driver must end with
+   finite factors or a breakdown), a rank spike under ``r_max_out``
+   recovers on the left and is accepted on the right, a NaN diagonal tile
+   and a NaN panel raise ``FactorizationBreakdown`` with the expected
+   reason and column (left, right).
 
 Then it holds each kernel against its plain PyTorch version on the card
 (f64, f32 and bf16; f64 and f32 for the QR and SVD) at the paths' shapes
@@ -996,8 +1016,17 @@ def log_shapes(label: str, shapes: dict) -> None:
 
 
 def left_residual(K, fact, Z) -> float:
-    """max_z ||K z - L (L^T z)|| / ||K z|| over the columns of Z."""
-    KZ = K @ Z
+    """max_z ||P K P^T z - L (L^T z)|| / ||P K P^T z|| over the columns of
+    Z, for the factorization's tile permutation P (the identity unless it
+    pivoted): P K P^T z is (K w)[e] with w[e] = z, e the element
+    permutation of ``fact.perm``."""
+    import torch
+    from repro_torch.core import tile_perm_to_element_perm
+    e = torch.as_tensor(tile_perm_to_element_perm(fact.perm, fact.L.b),
+                        device=Z.device)
+    W = torch.zeros_like(Z)
+    W[e] = Z
+    KZ = (K @ W)[e]
     LLZ = fact.tri_matvec(fact.tri_matvec(Z, trans=True))
     return float(((KZ - LLZ).norm(dim=0) / KZ.norm(dim=0)).max())
 
@@ -1112,6 +1141,8 @@ def main_path(n: int, profile: str | None) -> dict:
 
     reads = read_paths(op, fact, g)
     rounding = rounding_phase(op, K, g)
+    pivots = pivot_phase(op, K, Z, y, x_true, opts, sec_warm)
+    checked = check_phase(op, fact, opts, sec_warm)
     # The A-tile ranks batched_gemm gets in the first column (rows 1..nb-1).
     nb = n // tile
     rows = torch.arange(1, nb, device="cuda")
@@ -1130,7 +1161,7 @@ def main_path(n: int, profile: str | None) -> dict:
     return {"launches": launches, "batching": batching,
             "flat": by_batching["flat"], "ranked": by_batching["ranked"],
             "phases": phases, "ranks_a": ranks_a, "reads": reads,
-            **rounding}
+            **rounding, **pivots, **checked}
 
 
 def read_paths(op, fact, g, reps: int = 20) -> dict:
@@ -1394,11 +1425,7 @@ def right_phase(n: int, profile: str | None) -> dict:
         shapes = {"small_svd": path_shapes()["small_svd"],
                   "batched_qr": path_shapes()["batched_qr"],
                   "batched_gemm": gemm_shapes(gemm_calls)}
-        LtZ = fact.tri_matvec(Z, trans=True)
-        if fact.d is not None:
-            LtZ = LtZ * fact.d.reshape(-1, 1)
-        resid = float(((KZ - fact.tri_matvec(LtZ)).norm(dim=0)
-                       / KZ.norm(dim=0)).max())
+        resid = right_residual(fact, Z, KZ)
         x, t_solve = sync_time(lambda: fact.solve(y))
         st = fact.stats
         rl = fact.L.ranks.float()
@@ -1421,12 +1448,15 @@ def right_phase(n: int, profile: str | None) -> dict:
         out[key] = launches
         out[f"{key}_seconds"] = sec
         out[f"{key}_shapes"] = shapes
+        out[f"{key}_max_rank"] = int(rl.max())
         log(f"{key}: small_svd launches per (T, m, n): "
             f"{shapes_line(shapes['small_svd'])}; batched_qr per (T, b, r): "
             f"{shapes_line(shapes['batched_qr'])}")
         log(f"{key}: batched_gemm launches per (T, m, k, n): "
             f"{gemm_shapes_line(shapes['batched_gemm'])}")
-        del fact, LtZ, x, gemm_calls
+        del fact, x, gemm_calls
+    out.update(lookahead_phase(op, Z, KZ, y))
+    out.update(fault_phase(op, out["right_cholesky_max_rank"]))
     del op, K, KZ, Z
     torch.cuda.empty_cache()
     for kind, batching, flush in runs:
@@ -1647,6 +1677,302 @@ def frac_ns_phase(profile: str | None = None) -> dict:
     return {"launches": launches, "shapes": shapes}
 
 
+# -- phase 10: the right driver's lookahead schedule ---------------------------------
+
+
+def factor_diff(a, b) -> tuple[float, bool]:
+    """Max over L.D, L.U, L.V (and d) of max |a - b| / max |b|, and whether
+    every one of them is bitwise equal."""
+    import torch
+    pairs = [(a.L.D, b.L.D), (a.L.U, b.L.U), (a.L.V, b.L.V)]
+    if b.d is not None:
+        pairs.append((a.d, b.d))
+    rel = max(float((x - y).abs().max() / y.abs().max()) for x, y in pairs)
+    same = all(torch.equal(x, y) for x, y in pairs) and \
+        torch.equal(a.L.ranks, b.L.ranks)
+    return rel, same
+
+
+def right_residual(fact, Z, KZ) -> float:
+    """max_z ||K z - L D L^T z|| / ||K z|| over the columns of Z."""
+    LtZ = fact.tri_matvec(Z, trans=True)
+    if fact.d is not None:
+        LtZ = LtZ * fact.d.reshape(-1, 1)
+    return float(((KZ - fact.tri_matvec(LtZ)).norm(dim=0)
+                  / KZ.norm(dim=0)).max())
+
+
+def lookahead_phase(op, Z, KZ, y) -> dict:
+    """The right-looking driver under ``lookahead=True`` on the
+    cov2d-8k-right operator: Cholesky and LDL^T, flat and ranked, each
+    beside the sequential run of the same options (sequential first, then
+    lookahead). Gates: the lookahead factor within 1e-12 of the sequential
+    one (max abs over L.D, L.U, L.V and d, relative to the sequential
+    array's max), the right phase's residual gate, a finite solve, the QR,
+    SVD and GEMM kernels launched and the second CUDA stream in use. Logs
+    both wall times, the bitwise status, peak memory, flushes, append
+    widths and the first 8 stages of the executed order."""
+    import dataclasses
+
+    import torch
+    from repro_torch import CholOptions
+    from repro_torch.kernels import ops
+
+    out = {}
+    for kind in ("cholesky", "ldlt"):
+        for batching in ("flat", "ranked"):
+            key = f"right_{kind}_{batching}_lookahead"
+            opts = CholOptions(eps=EPS, algo="right", batching=batching)
+            seq, t_seq = sync_time(lambda: getattr(op, kind)(opts))
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            la, t_la = sync_time(lambda: getattr(op, kind)(
+                dataclasses.replace(opts, lookahead=True)))
+            launches = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            rel, same = factor_diff(la, seq)
+            resid = right_residual(la, Z, KZ)
+            x = la.solve(y)
+            st, sched = la.stats, la.stats["schedule"]
+            aw = st["append_widths"]
+            log(f"{key}: factor {t_la:.3f} s (sequential {t_seq:.3f} s, "
+                f"ratio {t_la / t_seq:.3f}); against sequential max rel "
+                f"diff {rel:.3e} (gate 1e-12), bitwise "
+                f"{'yes' if same else 'no'}; peak memory "
+                f"{peak / 2**30:.2f} GiB; {st['flushes']} flushes "
+                f"(sequential {seq.stats['flushes']}), append widths "
+                f"{dict(sorted(collections.Counter(aw).items())) or None}; "
+                f"schedule {sched['name']}, streams {sched['streams']}, "
+                f"first stages {sched['order'][:8]}; stage seconds "
+                f"{json.dumps({k: round(v, 3) for k, v in sched['kind_seconds'].items()})}; "
+                f"residual {resid:.3e} (gate {100 * EPS:.0e}); launches "
+                f"{json.dumps(launches)}")
+            for name in ROUND_KERNELS:
+                assert launches[name] > 0, \
+                    f"kernel {name} was not launched by {key}"
+            assert sched["name"] == "lookahead" and sched["streams"] == 2, \
+                f"{key}: the tail updates did not run on a second stream"
+            assert rel <= 1e-12, f"{key}: lookahead factor differs from " \
+                f"the sequential one by {rel:.3e}"
+            assert st["flushes"] == seq.stats["flushes"]
+            assert resid <= 100 * EPS, f"{key}: residual above 100 eps"
+            assert bool(torch.isfinite(x).all()), f"{key}: solve not finite"
+            out[key] = launches
+            out[f"{key}_seconds"] = (t_seq, t_la)
+            del seq, la, x
+    return out
+
+
+# -- phase 11: inter-tile pivoting (Algorithm 9) on the main path's operator -----
+
+
+def pivot_phase(op, K, Z, y, x_true, opts, t_plain: float) -> dict:
+    """The left-looking Cholesky of the main path's compressed operator
+    with ``pivot="frobenius"`` and ``pivot="power"``. Gates: the sampling
+    kernels launched, the randomized residual of ``P K P^T`` within 100
+    eps, a finite solve. Logs the pivot sequence, the columns that swapped
+    and the time against the unpivoted factorization's (warm)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import ops
+
+    out = {}
+    for pivot in ("frobenius", "power"):
+        key = f"main_pivot_{pivot}"
+        ops.reset_launch_counts()
+        fact, sec = sync_time(lambda: op.cholesky(
+            dataclasses.replace(opts, pivot=pivot)))
+        launches = ops.launch_counts()
+        resid = left_residual(K, fact, Z)
+        x = fact.solve(y)
+        err = float((x - x_true).norm() / x_true.norm())
+        piv = fact.stats["pivots"]
+        swapped = sum(int(p != k) for k, p in enumerate(piv))
+        log(f"{key}: factor {sec:.3f} s (unpivoted, warm: {t_plain:.3f} s, "
+            f"ratio {sec / t_plain:.3f}); pivots {piv}; {swapped} of "
+            f"{len(piv)} columns swapped; perm {fact.perm.tolist()}; "
+            f"residual of P K P^T {resid:.3e} (gate {100 * EPS:.0e}); "
+            f"solve rel err {err:.3e}; batching {fact.stats['batching']}; "
+            f"launches {json.dumps(launches)}")
+        for name in MAIN_KERNELS:
+            assert launches[name] > 0, \
+                f"kernel {name} was not launched by {key}"
+        assert len(piv) == op.nb and \
+            sorted(fact.perm.tolist()) == list(range(op.nb))
+        assert resid <= 100 * EPS, f"{key}: residual above 100 eps"
+        assert bool(torch.isfinite(x).all()), f"{key}: solve not finite"
+        out[key] = launches
+        del fact, x
+    return out
+
+
+# -- phase 12: health checks and the fault matrix ------------------------------------
+
+
+def check_phase(op, fact, opts, t_plain: float) -> dict:
+    """``check=True`` on the main path's default left Cholesky: the factor
+    within 1e-12 of the unchecked one (``fact``), no health event, every
+    column checked. Logs the bitwise status and the clean-path overhead
+    against the unchecked factorization's warm time."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    fc, sec = sync_time(lambda: op.cholesky(
+        dataclasses.replace(opts, check=True)))
+    launches = ops.launch_counts()
+    rel, same = factor_diff(fc, fact)
+    h = fc.stats["health"]
+    log(f"main_check: factor {sec:.3f} s (unchecked, warm: {t_plain:.3f} s; "
+        f"overhead {sec - t_plain:+.3f} s); against check=False max rel "
+        f"diff {rel:.3e} (gate 1e-12), bitwise {'yes' if same else 'no'}; "
+        f"columns_checked {h['columns_checked']}, events {h['events']}, "
+        f"check seconds {fc.stats['schedule']['kind_seconds'].get('check', 0):.3f}; "
+        f"launches {json.dumps(launches)}")
+    for name in MAIN_KERNELS:
+        assert launches[name] > 0, f"kernel {name} was not launched by " \
+            "main_check"
+    assert rel <= 1e-12, f"main_check: factor differs by {rel:.3e}"
+    assert h["events"] == [] and h["columns_checked"] == op.nb
+    return {"main_check": launches}
+
+
+def spike_scale(b: int, r: int, R: int, seed: int) -> tuple[float, float]:
+    """The ``scale`` of ``faults.spike_rank(..., seed=seed)`` (an r-wide
+    factor pair on a b-row tile) that puts the spike's (R+1)-th singular
+    value at 2e-6 -- over eps = 1e-6, so a factorization capped at rank R
+    overflows there -- and the norm of its singular values past R at that
+    scale (within the policy's eps floor, 1.6e-5, so a remedy can accept
+    it). The pair is numpy's draw, as the mutator makes it."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    Us, Vs = rng.standard_normal((b, r)), rng.standard_normal((b, r))
+    s = np.linalg.svd(Us @ Vs.T, compute_uv=False)
+    scale = math.sqrt(2e-6 / s[R])
+    return scale, float(np.sqrt((s[R:] ** 2).sum())) * scale ** 2
+
+
+def fault_phase(op, natural_rank: int) -> dict:
+    """The fault matrix of tests/test_health.py on the cov2d-8k-right
+    operator, ``check=True``, each case on the drivers the JAX package's
+    test runs it on: an indefinite diagonal tile at column nb - 2 recovers
+    (left, right, right with lookahead) with spd_breakdown events at its
+    column and finite factors (at column 2 the right driver either ends
+    with finite factors or raises a breakdown: logged); a rank spike under ``r_max_out`` recovers on the left
+    (an eps_loosen remedy) and is accepted on the right; a NaN diagonal
+    tile raises ``FactorizationBreakdown(spd_breakdown)`` at its column and
+    a NaN panel ``FactorizationBreakdown(nonfinite_panel)`` at its column
+    (left, right). A breakdown that does not come, or comes with another
+    reason or column, fails the run. The cap ``r_max_out`` is the operator's
+    natural L rank rounded up past 16 more (a multiple of bs = 16), and the
+    spike at tile (4, 0) -- the first panel sees it bare -- is scaled by
+    ``spike_scale``."""
+    import torch
+    from repro_torch import CholOptions, faults
+    from repro_torch.core import FactorizationBreakdown, tlr_cholesky
+    from repro_torch.kernels import ops
+
+    A = op.A
+    drivers = {"left": dict(algo="left"), "right": dict(algo="right"),
+               "right-lookahead": dict(algo="right", lookahead=True)}
+    R = 16 * math.ceil((natural_rank + 17) / 16)
+    scale, tail = spike_scale(A.b, A.r_max, R, seed=3)
+    log(f"fault phase: natural L rank {natural_rank}, cap r_max_out {R}; "
+        f"spike at tile (4, 0) scale {scale:.4e}: singular value {R + 1} "
+        f"2e-6, norm past {R} {tail:.3e} (eps floor 1.6e-05)")
+    assert R < A.r_max and tail <= 1.6e-5 / 2
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+
+    def finite(fact):
+        return all(bool(torch.isfinite(x).all())
+                   for x in (fact.L.D, fact.L.U, fact.L.V))
+
+    def summary(events):
+        return [(e["kind"], e["column"], e["stage"], e["remedy"],
+                 e["attempt"]) for e in events]
+
+    k_ind = A.nb - 2
+    bad = faults.make_diag_indefinite(A, k_ind, magnitude=4.0)
+    for name, kw in drivers.items():
+        fact, sec = sync_time(lambda: tlr_cholesky(
+            bad, CholOptions(eps=EPS, check=True, **kw)))
+        ev = fact.stats["health"]["events"]
+        log(f"fault indefinite diag {k_ind}, {name}: recovered in "
+            f"{sec:.3f} s, events {summary(ev)}")
+        spd = [e for e in ev if e["kind"] == "spd_breakdown"]
+        assert finite(fact) and spd \
+            and any(e["column"] == k_ind for e in spd) \
+            and all(e["remedy"] in ("clamp", "jitter") for e in spd), \
+            f"indefinite diagonal, {name}: not recovered as expected"
+        del fact
+    # The same fault at column 2: the clamp leaves L(2,2) with eps-sized
+    # singular values, so L(i,2) and every later Schur update grow by
+    # ~1/eps a clamped column, and each later diagonal tile is clamped in
+    # turn. Either the run ends with finite factors or it raises a
+    # structured breakdown -- never non-finite factors.
+    try:
+        fact, sec = sync_time(lambda: tlr_cholesky(
+            faults.make_diag_indefinite(A, 2, magnitude=4.0),
+            CholOptions(eps=EPS, check=True, algo="right")))
+    except FactorizationBreakdown as e:
+        rep = e.report
+        log(f"fault indefinite diag 2, right: breakdown {rep.reason} at "
+            f"column {rep.column} ({rep.stage}), remedies {rep.remedies}")
+    else:
+        clamps = sum(e["remedy"] == "clamp"
+                     for e in fact.stats["health"]["events"])
+        log(f"fault indefinite diag 2, right: finite factors in {sec:.3f} s "
+            f"after {clamps} clamped diagonal tiles")
+        assert finite(fact)
+        del fact
+    spiked = faults.spike_rank(A, 4, 0, seed=3, scale=scale)
+    for name, want in (("left", {"eps_loosen"}), ("right", {"accept"})):
+        fact, sec = sync_time(lambda: tlr_cholesky(spiked, CholOptions(
+            eps=EPS, r_max_out=R, check=True, **drivers[name])))
+        over = [e for e in fact.stats["health"]["events"]
+                if e["kind"] == "rank_overflow"]
+        log(f"fault rank spike (4, 0), {name}: {sec:.3f} s, rank_overflow "
+            f"events {summary(over)}, rows "
+            f"{[e['detail'].get('rows') for e in over]}")
+        assert finite(fact) and over and any(e["column"] == 0 for e in over)
+        if name == "left":
+            assert want <= {e["remedy"] for e in over}
+        else:
+            assert {e["remedy"] for e in over} == want
+        del fact
+    for site, column, reason in (("chol.diag", 2, "spd_breakdown"),
+                                 ("chol.panel", 1, "nonfinite_panel")):
+        for name in ("left", "right"):
+            fault = faults.Fault(site=site, kind="nan", column=column)
+            try:
+                with faults.inject(fault):
+                    tlr_cholesky(A, CholOptions(eps=EPS, check=True,
+                                                **drivers[name]))
+            except FactorizationBreakdown as e:
+                rep = e.report
+            else:
+                raise AssertionError(f"NaN {site} at column {column}, "
+                                     f"{name}: no breakdown raised")
+            log(f"fault NaN {site} column {column}, {name}: breakdown "
+                f"{rep.reason} at column {rep.column} ({rep.stage}), "
+                f"remedies {rep.remedies}")
+            assert (rep.reason, rep.column) == (reason, column), \
+                f"NaN {site}, {name}: breakdown {rep.reason} at column " \
+                f"{rep.column}, expected {reason} at {column}"
+            if site == "chol.diag":
+                assert "jitter" in rep.remedies
+    launches = ops.launch_counts()
+    log(f"fault phase: {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(launches)}")
+    for name in KERNELS:
+        assert launches[name] > 0, f"kernel {name} was not launched by " \
+            "the fault matrix"
+    return {"faults": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=32768)
@@ -1715,7 +2041,15 @@ def main() -> int:
                    "right_cholesky", "right_ldlt", "right_cholesky_ranked",
                    "right_ldlt_ranked")},
                "frac_pcg": frac_pcg["launches"],
-               "frac_ns": frac_ns["launches"]}
+               "frac_ns": frac_ns["launches"],
+               **{key: right[key] for key in (
+                   "right_cholesky_flat_lookahead",
+                   "right_cholesky_ranked_lookahead",
+                   "right_ldlt_flat_lookahead",
+                   "right_ldlt_ranked_lookahead", "faults")},
+               **{key: main[key] for key in (
+                   "main_pivot_frobenius", "main_pivot_power",
+                   "main_check")}}
     log(f"main path batching: auto -> {main['batching']} (main_{other}: "
         f"the same operator factored with batching={other})")
     kernels = []

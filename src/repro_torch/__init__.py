@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of the H2OPUS-TLR reproduction (``repro``).
 
 Compress a dense SPD operator into tile low rank form, round it, factor it
-with the left-looking ARA Cholesky or LDL^T or with the right-looking
-driver (flat, sequential), then solve, take log-determinants and draw
+with the left-looking ARA Cholesky or LDL^T (with inter-tile pivoting,
+if asked) or with the right-looking driver (sequential or lookahead,
+flat or rank-bucketed), optionally checked for breakdowns and repaired
+(``check=True``), then solve, take log-determinants and draw
 samples; compute with TLR matrices (GEMM, SYRK, axpy) and precondition
 PCG with a loose factorization or a Newton-Schulz TLR inverse -- on an
 NVIDIA Hopper card, with the five Pallas TPU kernels of the JAX package

@@ -28,7 +28,8 @@ Port of ``repro/core/algebra.py`` (:63-761, :764-1000):
   for one factored column: every trailing tile receives the column's rank-r
   outer product as an appended factor pair (at one shared column, or at
   each tile's own content width under ranked batching), every trailing
-  diagonal tile the dense product.
+  diagonal tile the dense product; ``part="head"`` / ``"tail"`` split it for
+  the right-looking driver's lookahead schedule.
 
 The JAX package gathers every output tile's term stacks in one piece; at
 N = 8192, tile 128 (4032 output tiles, 62 terms each, width 128) each such
@@ -41,8 +42,7 @@ launch.
 The QR, SVD and GEMM work runs in the port's kernels (``kernels/ops``): the
 CUDA kernels on the card, their plain versions on the CPU. ``_tiles_to_dense``
 and the general-grid matvec are stock torch, as they are plain jnp in the
-JAX package. Not ported yet: the ``head`` / ``tail`` split of the column
-SYRK (lookahead; raises ``NotImplementedError``).
+JAX package.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from .batching import bucket_width, bucketed_round_tiles, resolve_batching
-from .buckets import _bucket_ladder, _bucket_up, _pad_axis
+from .buckets import _bucket_ladder, _bucket_up, to_device
 from .tlr import TLRMatrix, tril_index, tril_pairs
 from ..kernels import ops
 
@@ -734,21 +734,14 @@ def tlr_syrk(A: TLRMatrix, L: TLRMatrix, eps: float,
 
 
 @lru_cache(maxsize=None)
-def _syrk_column_indices(nb: int, k: int, Tb: int):
-    """Gather grids for column ``k``'s trailing update, padded to the
-    ``Tb``-row bucket. Slots map local trailing-row pairs ``(a, c)``, a > c
-    (rows ``k+1+a`` and ``k+1+c``), to packed-lower tile indices; padded
-    slots carry ``valid=False`` and point at tile / block 0, where the
-    update adds exact zeros."""
-    T = nb - 1 - k
-    pairs = tril_pairs(Tb)
+def _syrk_column_pairs(nb: int, k: int):
+    """Column ``k``'s trailing pairs: local rows ``(a, c)``, a > c (rows
+    ``k+1+a`` and ``k+1+c``), and the packed-lower index of each pair's
+    tile, in packed order."""
+    pairs = tril_pairs(nb - 1 - k)
     a, c = pairs[:, 0], pairs[:, 1]
-    valid = a < T
     i, j = k + 1 + a, k + 1 + c
-    oidx = np.where(valid, i * (i - 1) // 2 + j, 0)
-    ar = np.arange(Tb)
-    didx = np.where(ar < T, k + 1 + ar, 0)
-    return oidx, a, c, valid, didx, ar < T
+    return i * (i - 1) // 2 + j, a, c
 
 
 def tlr_syrk_column(accU: torch.Tensor, accV: torch.Tensor, used,
@@ -771,12 +764,24 @@ def tlr_syrk_column(accU: torch.Tensor, accV: torch.Tensor, used,
     host array of content widths (ranked batching: each tile's
     concatenation stays compact, and its append lands at its own width).
 
+    ``part`` splits the update for the lookahead schedule: ``"head"``
+    applies only the tiles ``(i, k+1)`` and ``D[k+1]`` (what column ``k+1``
+    needs before its own panel can factor), ``"tail"`` the rest (tiles
+    ``(i, j)`` with ``j > k+1`` and the trailing diagonals past ``k+1``);
+    ``"head"`` then ``"tail"`` is exactly one ``"all"`` call -- each
+    trailing tile receives its single term from exactly one of the two, at
+    the same offset, by the same arithmetic. Each part writes only its own
+    tiles, so a ``"tail"`` on a second CUDA stream can run beside a reader
+    of column ``k+1``'s tiles.
+
     The JAX package returns new arrays (a donated jit that adds a rolled,
     zero-padded block at each tile's offset). Here a scalar offset is an
     ``index_add_`` into the ``[used, used + r)`` column window; per-tile
     offsets add into each live tile's own window (every live trailing tile
     appears once in the pair grid, so the indexed add is exact); the
-    diagonal update is an ``index_add_`` into ``D``. All in place.
+    diagonal update is an ``index_add_`` into ``D``. All in place, on the
+    current CUDA stream, with one host-to-device copy of the indices that
+    does not block the host.
 
     The scalar branch stays because it is the faster of the two for a flat
     offset: over the 63 appends of the flat right driver at N = 8192, tile
@@ -785,10 +790,7 @@ def tlr_syrk_column(accU: torch.Tensor, accV: torch.Tensor, used,
     bitwise-equal buffers (``tools/syrk_append.py``, NVIDIA H100 80GB
     HBM3, 700 W).
     """
-    if part in ("head", "tail"):
-        raise NotImplementedError(f"part={part!r} (the lookahead split) is "
-                                  "not ported; use part='all'")
-    if part != "all":
+    if part not in ("all", "head", "tail"):
         raise ValueError(f"part must be 'all', 'head' or 'tail', got "
                          f"{part!r}")
     nb = D.shape[0]
@@ -796,48 +798,51 @@ def tlr_syrk_column(accU: torch.Tensor, accV: torch.Tensor, used,
     if T <= 0:
         return
     r_p = Up.shape[-1]
-    w_acc = accU.shape[-1]
-    Tb = _bucket_up(T, _bucket_ladder(nb - 1))
-    oidx_h, aidx_h, cidx_h, valid_h, didx_h, dvalid_h = \
-        _syrk_column_indices(nb, k, Tb)
+    b, w_acc = accU.shape[1], accU.shape[-1]
+    o, a, c = _syrk_column_pairs(nb, k)
+    dslots = np.arange(T)
+    if part != "all":
+        sel = (c == 0) if part == "head" else (c >= 1)
+        o, a, c = o[sel], a[sel], c[sel]
+        dslots = dslots[:1] if part == "head" else dslots[1:]
+    # The overflow check sees only the tiles this part appends to (after a
+    # "head" call bumped its tiles' widths, the full-grid max would
+    # spuriously overflow for the following "tail").
     per_tile = np.ndim(used) != 0
     if per_tile:
         u = np.asarray(used)
-        live = oidx_h[valid_h]
-        high = int(u[live].max()) if live.size else 0
+        high = int(u[o].max()) if o.size else 0
+        cols = (u[o][:, None] + np.arange(r_p)[None, :]).reshape(-1)
     else:
         high = int(used)
+        cols = np.zeros(0, np.int64)
     if high + r_p > w_acc:
         raise ValueError(
             f"no room for a rank-{r_p} append at column {high} of the "
             f"width-{w_acc} accumulation buffers; round first "
             f"(tlr_round_tiles)")
-    oidx, aidx, cidx, valid, didx, dvalid = (
-        torch.as_tensor(x, device=D.device)
-        for x in (oidx_h, aidx_h, cidx_h, valid_h, didx_h, dvalid_h))
-    Up, Vn, ranks = (_pad_axis(x, Tb) for x in (Up, Vn, ranks))
+    n, nd = len(o), len(dslots)
+    if n + nd == 0:
+        return
+    idx = to_device(np.concatenate([o, a, c, dslots, cols]).astype(
+        np.int64), D.device)
+    ot, at, ct = idx[:n], idx[n:2 * n], idx[2 * n:3 * n]
+    dt = idx[3 * n:3 * n + nd]
     Vs = Vn if dk is None else Vn * dk[None, :, None]
-    G = torch.einsum("tbr,tbq->trq", Vs[aidx], Vn[cidx])
-    left = -ops.batched_gemm(Up[aidx], G.contiguous(), ranks[aidx].contiguous())
-    m = valid[:, None, None]
-    left = torch.where(m, left, torch.zeros_like(left))
-    right = torch.where(m, Up[cidx], torch.zeros_like(left))
-    if per_tile:
-        sel = np.nonzero(valid_h)[0]
-        o = oidx_h[sel]
-        dev = D.device
-        cols = (torch.as_tensor(u[o], device=dev)[:, None, None]
-                + torch.arange(r_p, device=dev)[None, None, :])
-        rows = torch.arange(accU.shape[1], device=dev)[None, :, None]
-        ot = torch.as_tensor(o, device=dev)[:, None, None]
-        st = torch.as_tensor(sel, device=dev)
-        accU[ot, rows, cols] += left[st]
-        accV[ot, rows, cols] += right[st]
-    else:
-        used = int(used)
-        accU[:, :, used:used + r_p].index_add_(0, oidx, left)
-        accV[:, :, used:used + r_p].index_add_(0, oidx, right)
-    Gd = torch.einsum("tbr,tbq->trq", Vs, Vn)
-    upd = torch.einsum("tbr,trq,tcq->tbc", Up, Gd, Up)
-    upd = torch.where(dvalid[:, None, None], upd, torch.zeros_like(upd))
-    D.index_add_(0, didx, -upd)
+    if n:
+        G = Vs[at].transpose(1, 2) @ Vn[ct]                     # (n, r, r)
+        left = -ops.batched_gemm(Up[at], G.contiguous(),
+                                 ranks[at].contiguous())
+        right = Up[ct]
+        if per_tile:
+            cw = idx[3 * n + nd:].view(n, 1, r_p)
+            rows = torch.arange(b, device=D.device)[None, :, None]
+            accU[ot[:, None, None], rows, cw] += left
+            accV[ot[:, None, None], rows, cw] += right
+        else:
+            used = int(used)
+            accU[:, :, used:used + r_p].index_add_(0, ot, left)
+            accV[:, :, used:used + r_p].index_add_(0, ot, right)
+    Ud = Up[dt]
+    upd = (Ud @ (Vs[dt].transpose(1, 2) @ Vn[dt])) @ Ud.transpose(1, 2)
+    D.index_add_(0, dt + (k + 1), -upd)

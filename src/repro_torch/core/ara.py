@@ -60,16 +60,26 @@ class ARAState:
 
 
 def torch_probes(seed: int) -> Callable[..., torch.Tensor]:
-    """Default probe source ``probes(k, it, shape, dtype, device)``: a
-    standard normal draw from a CPU ``torch.Generator`` seeded from
-    ``(seed, k, it)``, moved to ``device``. Keyed rather than sequential,
-    so the draws do not depend on how many other draws came before, and
-    identical on every device."""
+    """Default probe source ``probes(k, it, shape, dtype, device,
+    stream=())``: a standard normal draw from a CPU ``torch.Generator``
+    seeded from ``(seed, k, stream, it)``, moved to ``device``. Keyed rather
+    than sequential, so the draws do not depend on how many other draws
+    came before, and identical on every device.
 
-    def probes(k: int, it: int, shape, dtype, device) -> torch.Tensor:
+    ``stream`` names a draw sequence other than the panel ARA's (the JAX
+    package's ``fold_in`` path between the column and the iteration: the
+    factorization's rank-overflow re-pass draws with ``(7000 + attempt,)``);
+    ``it`` is None for a single draw per column (the start vectors of power
+    pivoting)."""
+
+    def probes(k: int, it, shape, dtype, device,
+               stream: tuple = ()) -> torch.Tensor:
+        h = int(seed) * 1_000_003 + (int(k) + 1)
+        for s in stream:
+            h = h * 1_000_003 + int(s) + 1
+        h = h * 1_000_003 + (-1 if it is None else int(it))
         g = torch.Generator()
-        g.manual_seed((int(seed) * 1_000_003 + (int(k) + 1)) * 1_000_003
-                      + int(it))
+        g.manual_seed(h % 2**64)
         return torch.randn(shape, generator=g, dtype=torch.float64).to(
             device=device, dtype=dtype)
 

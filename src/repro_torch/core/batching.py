@@ -32,7 +32,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from .buckets import _bucket_ladder, _bucket_up, trace_count, trace_event
+from .buckets import (_bucket_ladder, _bucket_up, to_device, trace_count,
+                      trace_event)
 from ..kernels import ops
 
 BATCHINGS = ("flat", "ranked", "auto")
@@ -301,8 +302,7 @@ def plan_memo(plan: TilePlan, key, make):
 def plan_index(plan: TilePlan, bk: RankBucket, device) -> torch.Tensor:
     """``bk.idx`` as a device tensor, memoized on the plan."""
     return plan_memo(plan, ("index", id(bk), torch.device(device)),
-                     lambda: torch.as_tensor(bk.idx.astype(np.int64),
-                                             device=device))
+                     lambda: to_device(bk.idx.astype(np.int64), device))
 
 
 # -- the auto policy ------------------------------------------------------------
@@ -433,7 +433,7 @@ def bucketed_round_tiles(U: torch.Tensor, V: torch.Tensor, ranks, eps: float,
             dense = ops.batched_gemm(
                 Ug, _gather_padded(V[:, :, :w].transpose(1, 2), idx,
                                    bk.padded),
-                torch.as_tensor(rg, device=dev))
+                to_device(rg, dev))
             Ub, Vb, rb, eb = _compress_dense_impl(dense, eps, r_out=k,
                                                   rel=rel)
         n = bk.count

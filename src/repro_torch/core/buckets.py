@@ -10,6 +10,7 @@ CUDA-graph capture has a bounded set of shapes to capture.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -47,6 +48,18 @@ def _column_buckets(nb: int, k: int, ladder: list[int]) -> tuple[int, int]:
     Tmin = (ladder[i - 1] + 1) if i > 0 else 1
     Jb = max(1, nb - 1 - Tmin)
     return Tb, Jb
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """Host array ``a`` as a tensor on ``device``. A copy to the card goes
+    through pinned memory and does not block the host: a copy from pageable
+    memory waits for the current stream's queued work first, which would
+    keep the right driver's lookahead schedule from enqueueing a panel
+    while the previous column's tail update runs."""
+    if torch.device(device).type != "cuda":
+        return torch.as_tensor(a, device=device)
+    return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+        device, non_blocking=True)
 
 
 def _pad_axis(x: torch.Tensor, size: int, axis: int = 0) -> torch.Tensor:

@@ -311,8 +311,8 @@ class TLRFactorization:
 
     ``L.D`` holds the dense diagonal blocks L(k,k) (unit-lower for LDL^T),
     ``d`` the LDL diagonal (None for Cholesky), ``perm`` the tile
-    permutation (logical -> original; the identity until pivoting is
-    ported), ``stats`` the driver's per-column record.
+    permutation (logical -> original; the identity unless the left driver
+    pivoted), ``stats`` the driver's per-column record.
     """
 
     L: TLRMatrix

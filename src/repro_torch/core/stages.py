@@ -1,12 +1,15 @@
-"""Column-stage graph the left-looking driver schedules over.
+"""Column-stage graph both Cholesky drivers schedule over.
 
 Own copy of ``repro/core/stages.py`` (pure Python), kept so the port's
 ``stats["schedule"]`` record has the JAX package's schema. Each column is
-decomposed into *stages* -- ``diag`` (dense diagonal factor) and ``panel``
-(ARA + TRSM) -- declared as :class:`Stage` nodes with explicit ``reads`` /
-``writes`` / ``destroys`` resource tokens. :func:`Schedule.order` turns the
-declared dataflow into an execution order and :func:`run_graph` executes it
-on the host; each stage body enqueues its device work asynchronously.
+decomposed into *stages* -- ``diag`` (dense diagonal factor), ``panel``
+(ARA + TRSM, or round + TRSM) and the right-looking trailing update
+(``update`` as one node, or the ``update_head`` / ``update_tail`` split the
+lookahead schedule needs) -- declared as :class:`Stage` nodes with explicit
+``reads`` / ``writes`` / ``destroys`` resource tokens.
+:func:`Schedule.order` turns the declared dataflow into an execution order
+and :func:`run_graph` executes it on the host; each stage body enqueues its
+device work asynchronously.
 
 Tokens are *versioned values*, written exactly once. Three edge kinds fall
 out:
@@ -15,12 +18,17 @@ out:
 * WAW -- a token's writer depends on the previous writer of the same token;
 * destruction anti-dependency -- a stage that ``destroys`` a token (it
   overwrites the backing buffer in place) must run after every *other*
-  reader of that token.
+  reader of that token. This is what lets the lookahead schedule run column
+  ``k``'s trailing update after column ``k+1``'s panel: the panel reads the
+  buffers before the update overwrites them.
 
-``SequentialSchedule`` reproduces program order (the only legal order for
-the left-looking driver's serial dependency chain). The JAX package's
-``LookaheadSchedule`` belongs to the right-looking driver and comes with
-it.
+``SequentialSchedule`` reproduces program order (the exact-parity default,
+and the only legal order for the left-looking driver's serial dependency
+chain). ``LookaheadSchedule`` sinks each column's ``update_tail`` below the
+*next* column's diag + panel; the dependency edges guarantee the reorder is
+legal (and ``order`` re-validates it). On the card the right-looking driver
+runs each ``update_tail`` on a second CUDA stream, so it overlaps the next
+column's panel.
 """
 
 from __future__ import annotations
@@ -30,7 +38,8 @@ import time
 from typing import Callable, Optional
 
 __all__ = [
-    "Stage", "Schedule", "SequentialSchedule", "build_deps", "run_graph",
+    "Stage", "Schedule", "SequentialSchedule", "LookaheadSchedule",
+    "build_deps", "run_graph",
 ]
 
 
@@ -171,6 +180,28 @@ class SequentialSchedule(Schedule):
 
     def priority(self, s: Stage) -> tuple:
         return (s.seq,)
+
+
+class LookaheadSchedule(Schedule):
+    """Right-looking lookahead: ``update_tail(k)`` sinks between
+    ``panel(k+1)`` and ``update_head(k+1)``.
+
+    Resulting order per column block: ``... update_head(k) -> diag(k+1)
+    -> panel(k+1) -> update_tail(k) -> update_head(k+1) ...`` -- the
+    narrow head update (next column's tiles + diagonal) runs first so
+    column ``k+1`` can start, and the destruction anti-dependency (the tail
+    overwrites the buffers the panel reads) pins the panel first.
+    """
+
+    name = "lookahead"
+
+    _RANK = {"init": -1.0, "diag": 0.0, "panel": 1.0, "update": 2.0,
+             "update_head": 3.0}
+
+    def priority(self, s: Stage) -> tuple:
+        if s.kind == "update_tail":
+            return (s.k + 1, 1.5, s.seq)
+        return (s.k, self._RANK.get(s.kind, 2.0), s.seq)
 
 
 def run_graph(stages: list[Stage], schedule: Schedule,

@@ -133,14 +133,26 @@ def test_eps_contract_with_torch_probes(problem, case):
 
 
 def test_unported_options_raise(problem):
-    _, _, At = problem
-    for opts, err in ((CholOptions(algo="right", lookahead=True),
-                       NotImplementedError),
-                      (CholOptions(pivot="frobenius"), NotImplementedError),
-                      (CholOptions(check=True), NotImplementedError),
-                      (CholOptions(batching="bucketed"), ValueError)):
-        with pytest.raises(err):
-            tlr_cholesky(At, opts)
+    """Every CholOptions knob of the JAX package runs in the port; only the
+    combinations the JAX package rejects raise, with the same ValueError:
+    pivoting with algo="right" or with LDL^T, a bad algo or batching. A bad
+    mode raises too (the JAX driver runs any mode but "fused" as
+    "dynamic")."""
+    _, A, At = problem
+    bad = (dict(algo="right", pivot="frobenius"), dict(algo="up"),
+           dict(batching="bucketed"))
+    for kw in bad:
+        with pytest.raises(ValueError):
+            jax_cholesky(A, JCholOptions(**kw))
+        with pytest.raises(ValueError):
+            tlr_cholesky(At, CholOptions(**kw))
+    with pytest.raises(ValueError, match="mode"):
+        tlr_cholesky(At, CholOptions(mode="static"))
+    for kw in (dict(pivot="power"), dict(pivot="frobenius")):
+        with pytest.raises(ValueError, match="LDL"):
+            jax_ldlt(A, JCholOptions(**kw))
+        with pytest.raises(ValueError, match="LDL"):
+            tlr_ldlt(At, CholOptions(**kw))
     # "auto" (the default) and "ranked" are ported and run
     assert CholOptions().batching == "auto"
     fact = tlr_cholesky(At, CholOptions(eps=1e-6, bs=8, batching="ranked"))

@@ -134,13 +134,16 @@ def test_right_stats_schema_matches_left():
 
 
 def test_right_rejects_unported_and_invalid_options():
+    """Only what the JAX package rejects raises: pivoting, a bad batching
+    or algo. Lookahead and check=True run (tests/test_torch_stages.py and
+    tests/test_torch_health.py hold them to the JAX package)."""
     _, _, op = _cov_op(128, 32)
     with pytest.raises(ValueError, match="pivot"):
         op.cholesky(CholOptions(algo="right", pivot="frobenius"))
-    with pytest.raises(NotImplementedError, match="lookahead"):
-        op.cholesky(CholOptions(algo="right", lookahead=True))
-    with pytest.raises(NotImplementedError, match="check"):
-        op.cholesky(CholOptions(algo="right", check=True))
+    fl = op.cholesky(CholOptions(algo="right", lookahead=True))
+    assert fl.stats["schedule"]["name"] == "lookahead"
+    fc = op.cholesky(CholOptions(algo="right", check=True))
+    assert fc.stats["health"]["events"] == []
     with pytest.raises(ValueError, match="batching"):
         op.cholesky(CholOptions(algo="right", batching="bucketed"))
     fr = op.cholesky(CholOptions(algo="right", batching="ranked"))
