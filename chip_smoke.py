@@ -59,6 +59,25 @@ before it and read just after:
    recovers on the left and is accepted on the right, a NaN diagonal tile
    and a NaN panel raise ``FactorizationBreakdown`` with the expected
    reason and column (left, right).
+9. the TLR inference server (``repro_torch.serve``), twice, on residents
+   the paths above already built (no further compression): the main
+   path's factor with its operator, ``fact.serve(operator=op, slots=8,
+   check_every=4)``, draining 64 requests that cycle through solve /
+   logdet / sample / pcg_solve (one solve column poisoned by a
+   ``serve.solve`` fault), gated on each solve within 1e-10 of
+   ``fact.solve``, each sample within 1e-10 of ``fact.sample(z=draw)``,
+   logdet equal to the memoized value, each pcg_solve at ``||K x - b|| /
+   ||b|| < 1e-5``, the poisoned request a ``nonfinite_result``; and
+   path 4's operator with its eps = 1e-2 Cholesky as preconditioner
+   (factored again once path 4's counts are read, so that no earlier
+   phase holds two factors at once), draining 16 pcg_solve requests (tol 1e-6) through 8 slots, gated on
+   convergence, the residual against K, the first two within 2 iterations
+   of scalar ``pcg`` and occupancy >= 0.8. Both gate on every request
+   completing once and on no new dispatch shape after warmup
+   (``trace_counts_diff``), and log warmup seconds, ticks, occupancy,
+   requests/s, p50 / p99 per kind, peak memory, the kernels' launches
+   during the drain (none: the read paths are stock torch products) and
+   whether batched and sequential results agree bit for bit.
 
 Then it holds each kernel against its plain PyTorch version on the card
 (f64, f32 and bf16; f64 and f32 for the QR and SVD) at the paths' shapes
@@ -129,6 +148,12 @@ FRAC_N, FRAC_TILE, FRAC_S, FRAC_EPS = 32768, 512, 0.75, (1e-2, 1e-4)
 # at 1e-10; the inverse at eps 1e-8 with norm scaling after each iteration
 # count of NS_ITERS (the example's defaults).
 NS_N, NS_TILE, NS_EPS, NS_ITERS = 8192, 128, 1e-8, (4, 8)
+# The server (phase 9): SERVE_SLOTS columns, a PCG window of SERVE_CHECK
+# iterations a tick (``fact.serve``'s defaults); SERVE_REQUESTS mixed
+# requests on the main path's resident, FRAC_SERVE_REQUESTS pcg_solve
+# requests on the fractional-diffusion one (twice the slots, so columns
+# refill mid-flight).
+SERVE_SLOTS, SERVE_CHECK, SERVE_REQUESTS, FRAC_SERVE_REQUESTS = 8, 4, 64, 16
 # Kernel against plain version: max abs error <= TOL * max |plain output|
 # (the tolerances of tests/test_kernels.py, relative to the output's scale),
 # for every output of the kernel. small_svd is held at TOL_SCALE = 10 times
@@ -1143,6 +1168,7 @@ def main_path(n: int, profile: str | None) -> dict:
     rounding = rounding_phase(op, K, g)
     pivots = pivot_phase(op, K, Z, y, x_true, opts, sec_warm)
     checked = check_phase(op, fact, opts, sec_warm)
+    served = serve_main_phase(op, fact, K)
     # The A-tile ranks batched_gemm gets in the first column (rows 1..nb-1).
     nb = n // tile
     rows = torch.arange(1, nb, device="cuda")
@@ -1161,7 +1187,7 @@ def main_path(n: int, profile: str | None) -> dict:
     return {"launches": launches, "batching": batching,
             "flat": by_batching["flat"], "ranked": by_batching["ranked"],
             "phases": phases, "ranks_a": ranks_a, "reads": reads,
-            **rounding, **pivots, **checked}
+            **rounding, **pivots, **checked, **served}
 
 
 def read_paths(op, fact, g, reps: int = 20) -> dict:
@@ -1574,9 +1600,11 @@ def frac_pcg_phase(profile: str | None = None) -> dict:
         f"frac pcg: eps={e1:g} took {iters[e1]} iterations, plain {it_plain}"
     assert iters[e2] <= iters[e1], \
         f"frac pcg: eps={e2:g} took more iterations than eps={e1:g}"
-    del op, K, x
+    del x
+    served = serve_frac_phase(op, K, FRAC_EPS[0])
+    del op, K
     torch.cuda.empty_cache()
-    return {"launches": launches, "shapes": shapes}
+    return {"launches": launches, "shapes": shapes, **served}
 
 
 # -- phase 9: the Newton-Schulz TLR inverse as preconditioner --------------------
@@ -1839,6 +1867,213 @@ def check_phase(op, fact, opts, t_plain: float) -> dict:
     return {"main_check": launches}
 
 
+# -- phase 9: the TLR inference server ------------------------------------------
+
+
+def rel_err(a, b) -> float:
+    """||a - b|| / ||b|| of two host arrays."""
+    import numpy as np
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def drive_server(label: str, srv, reqs, t_warm: float, faults_=()) -> dict:
+    """Submit ``reqs`` to the warm server ``srv`` and drain it, with the
+    kernels' launch counts set to 0 just before and read just after, and
+    the ``trace_counts`` registry snapshot taken after warmup. Gates: every
+    rid completes exactly once and no new dispatch shape appears. Logs
+    warmup seconds, ticks, occupancy, requests/s, p50 / p99 per kind, peak
+    memory and the kernels' launches during the drain."""
+    import torch
+    from repro_torch import faults
+    from repro_torch.core import trace_counts, trace_counts_diff
+    from repro_torch.kernels import ops
+    from repro_torch.serve import KINDS
+
+    snap = trace_counts()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [srv.submit(r) for r in reqs]
+    with (faults.inject(*faults_) if faults_ else contextlib.nullcontext()):
+        results = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    new_shapes = trace_counts_diff(snap)
+    st = srv.stats
+    summ = st.summary()
+    lat = {k: summ[f"latency_{k}"] for k in KINDS if f"latency_{k}" in summ}
+    log(f"{label}: warmup {t_warm:.3f} s; {st.completed} requests in "
+        f"{st.ticks} ticks, drain {wall:.3f} s ({st.completed / wall:.1f} "
+        f"requests/s; tick seconds {summ['wall_s']:.3f}, "
+        f"{summ['requests_per_s']:.1f} requests/s), occupancy "
+        f"{st.occupancy():.4f}, slots active per tick {st.tick_active}")
+    log(f"{label}: latency ms p50 / p99 per kind: " + ", ".join(
+        f"{k} {v['p50_s'] * 1e3:.2f} / {v['p99_s'] * 1e3:.2f} "
+        f"({v['count']})" for k, v in lat.items()))
+    log(f"{label}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; health {json.dumps(summ['health'])}; kernel launches during "
+        f"the drain {json.dumps(launches)}; trace registry "
+        f"{json.dumps(trace_counts())}, new shapes {json.dumps(new_shapes)}")
+    assert sorted(results) == sorted(rids) == list(range(len(reqs))), \
+        f"{label}: not every request completed"
+    assert st.completed == len(reqs), f"{label}: a request completed twice"
+    assert new_shapes == {}, f"{label}: new dispatch shapes {new_shapes}"
+    return {"results": results, "launches": launches, "wall": wall,
+            "stats": summ}
+
+
+def serve_main_phase(op, fact, K) -> dict:
+    """The server on the main path's operator and factor:
+    ``fact.serve(operator=op, slots=SERVE_SLOTS, check_every=4)``, 64
+    requests cycling through ``KINDS`` (rhs from ``default_rng(0)``,
+    pcg_solve tol 10^-U{4..8}, maxiter 100, as examples/serve_gp.py), one
+    solve column poisoned by a ``serve.solve`` fault. Gates: each solve
+    within 1e-10 of ``fact.solve`` on its column, each sample within 1e-10
+    of ``fact.sample(z=draw)``, logdet equal to the memoized value, each
+    pcg_solve converged with ``||K x - b|| / ||b|| < 1e-5``, the poisoned
+    rid a ``nonfinite_result``, and ``drive_server``'s. Logs whether the
+    batched solves and the first pcg_solve equal their sequential runs bit
+    for bit."""
+    import numpy as np
+    import torch
+    from repro_torch import faults, pcg
+    from repro_torch.serve import KINDS, ServeRequest
+
+    n = fact.n
+    torch.cuda.reset_peak_memory_stats()
+    srv, t_warm = sync_time(lambda: fact.serve(
+        operator=op, slots=SERVE_SLOTS, check_every=SERVE_CHECK))
+    rng = np.random.default_rng(0)
+    reqs = []
+    for u in range(SERVE_REQUESTS):
+        kind = KINDS[u % len(KINDS)]
+        y = rng.standard_normal(n) if kind in ("solve", "pcg_solve") else None
+        reqs.append(ServeRequest(kind, rhs=y, tol=10.0 ** -rng.integers(4, 9),
+                                 maxiter=100, seed=u))
+    poisoned = len(KINDS)           # the second solve request's rid
+    out = drive_server("serve cov2d-32k", srv, reqs, t_warm, (faults.Fault(
+        site="serve.solve", rid=poisoned),))
+    results = out["results"]
+    bad = results[poisoned]
+    assert not bad.ok and bad.error == "nonfinite_result", \
+        f"serve: poisoned rid {poisoned} ended as {bad.error}"
+    memo = srv._residents["default"].logdet
+    errs = {k: 0.0 for k in KINDS}
+    bitwise = {"solve": True}
+    for r in reqs:
+        res = results[r.rid]
+        if r.rid == poisoned:
+            continue
+        assert res.ok, f"serve: rid {r.rid} ({r.kind}) failed: {res.error}"
+        if r.kind == "solve":
+            want = fact.solve(torch.as_tensor(r.rhs, device="cuda")).cpu()
+            errs["solve"] = max(errs["solve"], rel_err(res.value,
+                                                       want.numpy()))
+            bitwise["solve"] &= bool(np.array_equal(res.value, want.numpy()))
+        elif r.kind == "sample":
+            z = torch.randn((n, 1), generator=r.sample_generator(),
+                            dtype=fact.dtype)
+            want = fact.sample(z=z.to("cuda")).cpu().numpy()
+            errs["sample"] = max(errs["sample"], rel_err(res.value, want))
+        elif r.kind == "logdet":
+            assert res.value == memo, "serve: logdet differs from the memo"
+        else:
+            assert res.converged and res.breakdown is None, \
+                f"serve: pcg_solve rid {r.rid} did not converge"
+            x = torch.as_tensor(res.value, device="cuda")
+            b = torch.as_tensor(r.rhs, device="cuda")
+            errs["pcg_solve"] = max(errs["pcg_solve"], float(
+                (K @ x - b).norm() / b.norm()))
+    first = next(r for r in reqs if r.kind == "pcg_solve")
+    xs, its, _ = pcg(op, torch.as_tensor(first.rhs, device="cuda"),
+                     precond=fact, tol=first.tol, maxiter=first.maxiter,
+                     check_every=SERVE_CHECK)
+    bitwise["pcg_solve"] = bool(np.array_equal(results[first.rid].value,
+                                               xs.cpu().numpy()))
+    iters = sorted(results[r.rid].iterations for r in reqs
+                   if r.kind == "pcg_solve")
+    logdet_now = float(fact.logdet())
+    log(f"serve cov2d-32k: solve max rel err {errs['solve']:.3e} (gate "
+        f"1e-10), sample {errs['sample']:.3e} (gate 1e-10), logdet memo "
+        f"{memo!r} (a fresh fact.logdet() {logdet_now!r}), pcg_solve "
+        f"iterations {iters}, max ||Kx - b||/||b|| {errs['pcg_solve']:.3e} "
+        f"(gate 1e-5); poisoned rid {poisoned}: {bad.error}, every other "
+        f"request ok; batched vs sequential bit for bit: solve "
+        f"{'yes' if bitwise['solve'] else 'no'}, pcg_solve rid {first.rid} "
+        f"{'yes' if bitwise['pcg_solve'] else 'no'} (scalar {its} "
+        f"iterations, batched {results[first.rid].iterations})")
+    assert errs["solve"] <= 1e-10, "serve: a solve differs from fact.solve"
+    assert errs["sample"] <= 1e-10, "serve: a sample differs from fact.sample"
+    assert errs["pcg_solve"] < 1e-5, "serve: a pcg_solve is far from K^-1 b"
+    del srv
+    return {"serve": out["launches"]}
+
+
+def serve_frac_phase(op, K, eps: float) -> dict:
+    """The server on frac3d-32k-pcg's compressed operator with the loose
+    Cholesky of ``tlr_add_diag(op.A, eps)`` as preconditioner, factored
+    here again (as frac3d-32k-pcg factors it, after its launch counts were
+    read, so that no earlier phase holds two factors at once;
+    benchmarks/bench_tlr.py::bench_serve's shape at the paper's section
+    6.2 size): FRAC_SERVE_REQUESTS pcg_solve requests (tol 1e-6, maxiter
+    300, rhs from ``default_rng(1)``) into SERVE_SLOTS slots, so columns
+    refill mid-flight. Gates: every request converges with ``||K x - b|| /
+    ||b|| < 1e-5``, the first two within 2 iterations of scalar ``pcg`` on
+    the same rhs, occupancy >= 0.8, and ``drive_server``'s. Logs whether
+    the batched and scalar iterates agree bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch import CholOptions, TLROperator, pcg
+    from repro_torch.core import tlr_add_diag
+    from repro_torch.serve import ServeRequest
+
+    n = op.n
+    torch.cuda.reset_peak_memory_stats()
+    fact, t_fact = sync_time(lambda: TLROperator(
+        tlr_add_diag(op.A, eps)).cholesky(CholOptions(eps=eps, bs=16)))
+    log(f"serve frac3d-32k: resident Cholesky at eps={eps:g} in "
+        f"{t_fact:.3f} s")
+    srv, t_warm = sync_time(lambda: fact.serve(
+        operator=op, slots=SERVE_SLOTS, check_every=SERVE_CHECK))
+    rng = np.random.default_rng(1)
+    reqs = [ServeRequest("pcg_solve", rhs=rng.standard_normal(n), tol=1e-6,
+                         maxiter=300) for _ in range(FRAC_SERVE_REQUESTS)]
+    out = drive_server("serve frac3d-32k", srv, reqs, t_warm)
+    results = out["results"]
+    worst = 0.0
+    for r in reqs:
+        res = results[r.rid]
+        assert res.ok and res.converged, \
+            f"serve frac: rid {r.rid} did not converge ({res.breakdown})"
+        x = torch.as_tensor(res.value, device="cuda")
+        b = torch.as_tensor(r.rhs, device="cuda")
+        worst = max(worst, float((K @ x - b).norm() / b.norm()))
+    scalar = []
+    for r in reqs[:2]:
+        (xs, its, _), t_s = sync_time(lambda: pcg(
+            op, torch.as_tensor(r.rhs, device="cuda"), precond=fact,
+            tol=r.tol, maxiter=r.maxiter, check_every=SERVE_CHECK))
+        res = results[r.rid]
+        scalar.append((its, res.iterations, t_s, bool(np.array_equal(
+            res.value, xs.cpu().numpy())), rel_err(res.value,
+                                                   xs.cpu().numpy())))
+    iters = [results[r.rid].iterations for r in reqs]
+    occ = out["stats"]["occupancy"]
+    log(f"serve frac3d-32k: pcg_solve iterations {iters}, max "
+        f"||Kx - b||/||b|| {worst:.3e} (gate 1e-5), occupancy {occ:.4f} "
+        f"(gate 0.8); first two against scalar pcg (iterations scalar / "
+        f"batched, scalar seconds, bit for bit, rel diff): " + "; ".join(
+            f"{a} / {b}, {t:.3f} s, {'yes' if same else 'no'}, {d:.3e}"
+            for a, b, t, same, d in scalar))
+    assert worst < 1e-5, "serve frac: a pcg_solve is far from K^-1 b"
+    for its, it_b, *_ in scalar:
+        assert abs(its - it_b) <= 2, \
+            f"serve frac: batched {it_b} iterations, scalar {its}"
+    assert occ >= 0.8, f"serve frac: occupancy {occ:.3f} < 0.8"
+    del srv
+    return {"frac_serve": out["launches"]}
+
+
 def spike_scale(b: int, r: int, R: int, seed: int) -> tuple[float, float]:
     """The ``scale`` of ``faults.spike_rank(..., seed=seed)`` (an r-wide
     factor pair on a b-row tile) that puts the spike's (R+1)-th singular
@@ -2041,6 +2276,7 @@ def main() -> int:
                    "right_cholesky", "right_ldlt", "right_cholesky_ranked",
                    "right_ldlt_ranked")},
                "frac_pcg": frac_pcg["launches"],
+               "serve": main["serve"], "frac_serve": frac_pcg["frac_serve"],
                "frac_ns": frac_ns["launches"],
                **{key: right[key] for key in (
                    "right_cholesky_flat_lookahead",

@@ -6,9 +6,13 @@ if asked) or with the right-looking driver (sequential or lookahead,
 flat or rank-bucketed), optionally checked for breakdowns and repaired
 (``check=True``), then solve, take log-determinants and draw
 samples; compute with TLR matrices (GEMM, SYRK, axpy) and precondition
-PCG with a loose factorization or a Newton-Schulz TLR inverse -- on an
-NVIDIA Hopper card, with the five Pallas TPU kernels of the JAX package
-replaced by hand-written CUDA kernels (``kernels/csrc``).
+PCG with a loose factorization or a Newton-Schulz TLR inverse, one
+right-hand side or a block of them (``BatchedPCG``); and serve a resident
+factorization to a stream of solve / logdet / sample / pcg_solve
+requests through fixed ``(n, slots)`` blocks (``fact.serve()``,
+``repro_torch.serve``) -- on an NVIDIA Hopper card, with the five Pallas
+TPU kernels of the JAX package replaced by hand-written CUDA kernels
+(``kernels/csrc``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 where every kernel runs its plain PyTorch version. The package imports

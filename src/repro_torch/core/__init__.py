@@ -29,15 +29,16 @@ from .health import (BreakdownReport, FactorizationBreakdown, HealthEvent,
 from .operator import TLRFactorization, TLROperator
 from .ordering import kd_tree_ordering
 from .precond import NewtonSchulzInfo, tlr_newton_schulz
-from .solve import (PCGHistory, pcg, tile_perm_to_element_perm, tlr_matvec,
-                    tlr_tri_matvec, tlr_trsv, tlr_trsv_reference)
+from .solve import (BatchedPCG, PCGHistory, pcg, tile_perm_to_element_perm,
+                    tlr_matvec, tlr_tri_matvec, tlr_trsv,
+                    tlr_trsv_reference)
 from .stages import (LookaheadSchedule, Schedule, SequentialSchedule, Stage,
                      build_deps, run_graph)
 from .tlr import (TLRMatrix, num_tiles, tlr_to_dense, tril_index,
                   tril_pairs, zeros_like_structure)
 
 __all__ = [
-    "ARAParams", "BatchPlan", "BreakdownReport", "CholOptions",
+    "ARAParams", "BatchPlan", "BatchedPCG", "BreakdownReport", "CholOptions",
     "FactorizationBreakdown", "HealthEvent", "HealthMonitor",
     "LookaheadSchedule", "NewtonSchulzInfo", "PCGHistory", "RankBucket",
     "RetryPolicy", "Schedule", "SequentialSchedule", "Stage",
@@ -51,12 +52,12 @@ __all__ = [
     "generalize", "grid_points", "kd_tree_ordering", "matern32_covariance",
     "num_tiles", "offd_index", "offd_pairs", "pcg", "plan_rank_buckets",
     "rank_ladder", "resolve_batching", "resolve_policy", "robust_cholesky",
-    "run_ara_fused", "run_graph", "spectral_norm_est",
-    "spectral_norm_est_op", "symmetrize", "tile_perm_to_element_perm",
-    "tile_plan", "tlr_add_diag", "tlr_axpy", "tlr_cholesky", "tlr_gemm",
-    "tlr_ldlt", "tlr_matvec", "tlr_newton_schulz", "tlr_round",
-    "tlr_round_tiles", "tlr_scale", "tlr_syrk", "tlr_syrk_column",
-    "tlr_to_dense", "tlr_transpose", "tlr_tri_matvec", "tlr_trsv",
-    "tlr_trsv_reference", "torch_probes", "trace_count", "trace_counts",
-    "trace_counts_diff", "tril_index", "tril_pairs", "zeros_like_structure",
+    "run_ara_fused", "run_graph", "spectral_norm_est", "spectral_norm_est_op",
+    "symmetrize", "tile_perm_to_element_perm", "tile_plan", "tlr_add_diag",
+    "tlr_axpy", "tlr_cholesky", "tlr_gemm", "tlr_ldlt", "tlr_matvec",
+    "tlr_newton_schulz", "tlr_round", "tlr_round_tiles", "tlr_scale",
+    "tlr_syrk", "tlr_syrk_column", "tlr_to_dense", "tlr_transpose",
+    "tlr_tri_matvec", "tlr_trsv", "tlr_trsv_reference", "torch_probes",
+    "trace_count", "trace_counts", "trace_counts_diff", "tril_index",
+    "tril_pairs", "zeros_like_structure",
 ]

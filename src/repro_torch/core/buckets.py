@@ -80,7 +80,9 @@ def _pad_axis(x: torch.Tensor, size: int, axis: int = 0) -> torch.Tensor:
 #
 #   "batching" -- rank-bucketed rounding / densify cores (core/batching.py),
 #   "plan"     -- rank-bucketed read-path chains driven by a TilePlan
-#                 (core/solve.py).
+#                 (core/solve.py),
+#   "trsm"     -- the blocked TRSM's column steps (core/solve.py),
+#   "pcg"      -- the batched-RHS PCG block step (core/solve.py).
 #
 # Each family must stay O(ladder length) per shape family and never scale
 # with the tile count or the rank distribution; it is also the set of

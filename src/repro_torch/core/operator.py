@@ -1,6 +1,6 @@
 """Operator-first public API: ``TLROperator`` and ``TLRFactorization``.
 
-Port of ``repro/core/operator.py:53-392,402-477``: compress -> factor ->
+Port of ``repro/core/operator.py:53-392,402-499``: compress -> factor ->
 solve/logdet/sample (section 6).
 
 * ``TLROperator`` wraps a ``TLRMatrix``: ``compress`` / ``from_dense`` /
@@ -11,7 +11,8 @@ solve/logdet/sample (section 6).
   ``plan`` (the rank-bucket execution plan of ``core/batching.py``), and
   ``cholesky`` / ``ldlt`` returning a factorization handle.
 * ``TLRFactorization`` is the result handle of the factorizations:
-  ``solve``, ``tri_matvec``, ``tri_solve``, ``logdet`` and ``sample``.
+  ``solve``, ``tri_matvec``, ``tri_solve``, ``logdet``, ``sample`` and
+  ``serve`` (a ``repro_torch.serve.TLRServer`` with the factor resident).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -385,3 +386,24 @@ class TLRFactorization:
         ``z`` (n, num) may be passed in, else it is drawn from
         ``generator``."""
         return _solve._mvn_sample_impl(self, num, generator=generator, z=z)
+
+    def serve(self, *, operator=None, slots: int = 8, check_every: int = 4,
+              seed: int = 0, warmup: bool = True):
+        """A :class:`~repro_torch.serve.TLRServer` with this factorization
+        resident (fid ``"default"``): continuous-batching solve / logdet /
+        sample / pcg_solve through fixed ``(n, slots)`` RHS blocks on the
+        factor's device.
+
+        Pass ``operator`` (the compressed A this handle factors) to enable
+        ``pcg_solve`` requests: the server builds a width-``slots`` batched
+        PCG engine over it, preconditioned by this factorization.
+        ``warmup=True`` runs every fixed-shape operation of the serve path
+        once before returning.
+        """
+        from ..serve import TLRServer
+
+        srv = TLRServer(slots, check_every=check_every, seed=seed)
+        srv.register("default", self, operator=operator)
+        if warmup:
+            srv.warmup()
+        return srv

@@ -1,8 +1,9 @@
 """TLR matrix-vector products and triangular solves (section 4.4, Alg. 7),
 log-determinant, MVN sampling and preconditioned conjugate gradients.
 
-Port of the read paths of ``repro/core/solve.py`` (:47-390, :443-478) and
-its scalar ``pcg`` (:492-648; the batched ``BatchedPCG`` is not ported).
+Port of the read paths of ``repro/core/solve.py`` (:47-390, :443-478),
+its ``pcg`` (:492-648) and the batched-RHS engine ``BatchedPCG`` behind
+``pcg``'s 2-D route and the server (:651-941).
 Every read path dispatches through the :class:`~.batching.TilePlan` layer:
 the matvec marshals the off-diagonal tiles into batched two-product chains
 ``U (V^T x)`` plus a segment reduction (``index_add_``), either as one flat
@@ -27,6 +28,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..device import numpy_dtype, resolve_device
 from .batching import plan_memo, resolve_batching, tile_plan
 from .buckets import _bucket_ladder, _bucket_up, trace_event
 from .tlr import TLRMatrix, tril_index, tril_pairs
@@ -225,13 +227,15 @@ def _trsv_column_steps(nb: int, trans: bool, device: torch.device):
     return tuple(steps)
 
 
-def _trsm_step(L: TLRMatrix, xb, k, tidx, ridx, valid, trans: bool,
+def _trsm_step(L: TLRMatrix, xb, k, Tb, tidx, ridx, valid, trans: bool,
                w: int):
     """One blocked-TRSM column (in place on ``xb``, shape (nb, b, m)):
     solve the diagonal block, then subtract the low-rank update from the
     remaining blocks. ``w`` is the column's plan width (``r_max`` on the
     flat path): the U/V gathers take only that many columns. Padded slots
     carry a zero update into block 0."""
+    trace_event("trsm", (tuple(xb.shape), Tb, w, trans, str(xb.dtype),
+                         xb.device.type))
     Dk = L.D[k]
     if w < L.r_max:
         Ut, Vt = L.U[:, :, :w][tidx], L.V[:, :, :w][tidx]
@@ -269,7 +273,7 @@ def tlr_trsv(L: TLRMatrix, y: torch.Tensor, *, trans: bool = False,
                                        trans, _bucket_ladder(nb - 1))
     for Tb, k, tidx, ridx, valid in _trsv_column_steps(nb, trans, xb.device):
         w = bucket_w[Tb] if bucket_w is not None else L.r_max
-        _trsm_step(L, xb, k, tidx, ridx, valid, trans, w)
+        _trsm_step(L, xb, k, Tb, tidx, ridx, valid, trans, w)
     return xb.reshape(y.shape)
 
 
@@ -403,13 +407,14 @@ def pcg(A, b_rhs: torch.Tensor, *, precond=None, tol=1e-6,
     from its start up to the event. The window is clamped to the
     iterations remaining.
 
-    Only a single right-hand side ``(n,)`` is ported: the batched form
-    (``BatchedPCG``) comes with the server (ROADMAP Queue 1 item 6).
+    A 2-D right-hand side ``(n, k)`` runs per-column CG through a
+    :class:`BatchedPCG` of width k (``tol`` scalar or ``(k,)``) and returns
+    ``(X, iters, histories)``: the ``(n, k)`` iterate block, a numpy
+    ``(k,)`` iteration count and one :class:`PCGHistory` per column.
     """
     if b_rhs.dim() >= 2:
-        raise NotImplementedError(
-            "pcg with a 2-D right-hand side (BatchedPCG) is not ported yet "
-            "(ROADMAP Queue 1 item 6); pass one column at a time")
+        return _pcg_batched(A, b_rhs, precond=precond, tol=tol,
+                            maxiter=maxiter, check_every=check_every)
     tol = float(tol)
     matvec = _as_matvec(A)
     precond = _as_matvec(precond)
@@ -491,3 +496,308 @@ def pcg(A, b_rhs: torch.Tensor, *, precond=None, tol=1e-6,
                 st, _ = step(*st)
             state = st
     return state[0], it, history
+
+
+# -- batched-RHS PCG with per-column convergence masks --------------------------
+
+
+def _pcg_block_step(matvec, precond, X, R, P, RZ, act):
+    """One batched CG iteration over an ``(n, k)`` block with per-column
+    alpha/beta and a per-column active mask ``act`` (a ``(k,)`` bool tensor
+    on the block's device).
+
+    Columns are independent: the matvec applies the operator to each
+    column separately and every other op is columnwise, so masking a
+    column freezes it exactly. Frozen columns keep their old state through
+    explicit ``where`` selects (their lanes may compute garbage, even NaN
+    from a broken-down neighbour's iterate; the select discards it)."""
+    trace_event("pcg", (tuple(X.shape), str(X.dtype), X.device.type))
+    AP = matvec(P)
+    pAp = (P * AP).sum(0)
+    alpha = torch.where(act, RZ / torch.where(pAp != 0, pAp, 1.0), 0.0)
+    Xn = torch.where(act, X + alpha[None, :] * P, X)
+    Rn = torch.where(act, R - alpha[None, :] * AP, R)
+    rnorm = torch.linalg.norm(Rn, dim=0)
+    Z = precond(Rn) if precond else Rn
+    RZn = (Rn * Z).sum(0)
+    beta = torch.where(act, RZn / torch.where(RZ != 0, RZ, 1.0), 0.0)
+    Pn = torch.where(act, Z + beta[None, :] * P, P)
+    RZk = torch.where(act, RZn, RZ)
+    return (Xn, Rn, Pn, RZk), (pAp, rnorm, RZn)
+
+
+def _host_column(b, dtype: np.dtype) -> np.ndarray:
+    """A right-hand side (numpy, list or tensor on any device) as a flat
+    host array of ``dtype``."""
+    if isinstance(b, torch.Tensor):
+        b = b.detach().cpu().numpy()
+    return np.asarray(b, dtype).reshape(-1)
+
+
+class BatchedPCG:
+    """Incremental batched-RHS PCG over a fixed-width column block.
+
+    The engine holds ``width`` right-hand-side *slots* of length ``n`` on
+    ``device``. Columns are loaded with :meth:`load` (each with its own
+    tolerance and iteration budget), advanced together in windows of
+    ``check_every`` iterations by :meth:`advance`, and leave the block the
+    moment they converge, break down or exhaust their budget: a per-column
+    mask freezes finished columns while the rest iterate, so shapes never
+    change and one slow column cannot stall the block (the iterative-solve
+    mirror of the paper's Algorithm 5; the engine the ``TLRServer`` ticks
+    drive).
+
+    Stopping is exact per iteration: after each window one host read
+    (``.cpu()``) pulls the window's ``(steps, 3, width)`` scalars, each
+    column's stop is located on the host with the scalar :func:`pcg` rules,
+    and if a column stopped mid-window the window is replayed with
+    per-step masks, so a stopped column freezes at its last accepted
+    iterate. The window length never depends on per-column budgets, so
+    the block step's shape set is fixed after the first window.
+
+    Statuses: ``"idle"`` (slot empty), ``"pending"`` (loaded, written to
+    the device at the next :meth:`advance`), ``"active"`` (iterating),
+    ``"done"`` (finished, result waiting for :meth:`evict`).
+
+    ``device`` defaults to ``A``'s (or ``precond``'s) ``.device``, else the
+    card; ``dtype`` to ``torch.float64``.
+    """
+
+    def __init__(self, A, n: int, width: int, *, precond=None,
+                 maxiter: int = 300, check_every: int = 8,
+                 dtype=None, device=None):
+        self.matvec = _as_matvec(A)
+        self.precond = _as_matvec(precond)
+        self.n, self.width = int(n), int(width)
+        self.check_every = max(1, int(check_every))
+        self.default_maxiter = int(maxiter)
+        self.dtype = dtype if dtype is not None else torch.float64
+        self.np_dtype = numpy_dtype(self.dtype)
+        if device is None:
+            device = getattr(A, "device", None) or getattr(
+                precond, "device", None)
+        self.device = resolve_device(device)
+        self._reset_state()
+
+    def _reset_state(self):
+        n, w = self.n, self.width
+        kw = dict(dtype=self.dtype, device=self.device)
+        self.X = torch.zeros((n, w), **kw)
+        self.R = torch.zeros((n, w), **kw)
+        self.P = torch.zeros((n, w), **kw)
+        self.RZ = torch.zeros((w,), **kw)
+        self.act = np.zeros(w, bool)
+        self.status = ["idle"] * w
+        self.converged = np.zeros(w, bool)
+        self.bnorm = np.zeros(w)
+        self.tol = np.full(w, 1e-6)
+        self.maxiter = np.full(w, self.default_maxiter, np.int64)
+        self.iters = np.zeros(w, np.int64)
+        self.hist: list[PCGHistory] = [PCGHistory() for _ in range(w)]
+        self._pending: dict[int, np.ndarray] = {}
+
+    def reset(self):
+        """Clear every slot (after a warmup pass)."""
+        self._reset_state()
+
+    # -- slot lifecycle ----------------------------------------------------
+
+    def load(self, j: int, b_col, *, tol: float = 1e-6,
+             maxiter: int | None = None) -> None:
+        """Stage right-hand side ``b_col`` into column ``j``. The device
+        write happens at the next :meth:`advance`, as one masked block
+        update over all staged columns."""
+        j = int(j)
+        if self.status[j] == "active":
+            raise ValueError(f"column {j} is still active; evict it first")
+        col = _host_column(b_col, self.np_dtype)
+        if col.shape[0] != self.n:
+            raise ValueError(
+                f"rhs length {col.shape[0]} != operator size {self.n}")
+        self.hist[j] = PCGHistory()
+        self.iters[j] = 0
+        self.converged[j] = False
+        self.act[j] = False
+        self.tol[j] = float(tol)
+        self.maxiter[j] = int(maxiter if maxiter is not None
+                              else self.default_maxiter)
+        self.bnorm[j] = float(np.linalg.norm(col))
+        if self.bnorm[j] == 0.0:
+            # x = 0 exactly; empty history, converged (scalar-pcg contract)
+            self._pending.pop(j, None)
+            self.status[j] = "done"
+            self.converged[j] = True
+            return
+        self.status[j] = "pending"
+        self._pending[j] = col
+
+    def evict(self, j: int) -> tuple[np.ndarray, int, PCGHistory, bool]:
+        """Pull column ``j``'s result to the host and free the slot.
+        Returns ``(x, iterations, history, converged)``."""
+        j = int(j)
+        if self.status[j] != "done":
+            raise ValueError(f"column {j} is {self.status[j]!r}, not done")
+        x = self.X[:, j].cpu().numpy().copy()
+        out = (x, int(self.iters[j]), self.hist[j], bool(self.converged[j]))
+        self.status[j] = "idle"
+        self.act[j] = False
+        return out
+
+    def cancel(self, j: int) -> None:
+        """Abandon column ``j`` in whatever state it is in and free the
+        slot (a timeout eviction). Its device lanes keep their stale
+        values until the column is loaded again; nothing reads them."""
+        j = int(j)
+        self.status[j] = "idle"
+        self.act[j] = False
+        self._pending.pop(j, None)
+
+    def solution(self) -> torch.Tensor:
+        """The current iterate block (on the device, ``(n, width)``)."""
+        return self.X
+
+    @property
+    def active_columns(self) -> list[int]:
+        return [j for j, s in enumerate(self.status)
+                if s in ("active", "pending")]
+
+    @property
+    def done_columns(self) -> list[int]:
+        return [j for j, s in enumerate(self.status) if s == "done"]
+
+    # -- the window --------------------------------------------------------
+
+    def _flush_pending(self) -> list[int]:
+        """Materialize staged columns: one masked block write (x = 0,
+        r = b), one batched preconditioner application for p / rz, and the
+        per-column initial-residual bookkeeping. Returns the columns that
+        finished at init (rz <= 0 or non-finite: immediate breakdown)."""
+        if not self._pending:
+            return []
+        cols = sorted(self._pending)
+        B = np.zeros((self.n, self.width), self.np_dtype)
+        sel = np.zeros(self.width, bool)
+        for j in cols:
+            B[:, j] = self._pending[j]
+            sel[j] = True
+        Bd = torch.as_tensor(B).to(self.device)
+        m = torch.as_tensor(sel).to(self.device)
+        self.R = torch.where(m[None, :], Bd, self.R)
+        self.X = torch.where(m[None, :], 0.0, self.X)
+        Z = self.precond(self.R) if self.precond else self.R
+        RZ_all = (self.R * Z).sum(0)
+        self.P = torch.where(m[None, :], Z, self.P)
+        self.RZ = torch.where(m, RZ_all, self.RZ)
+        rz_host = RZ_all.cpu().numpy()[cols]
+        finished = []
+        for j, rz in zip(cols, rz_host):
+            rz = float(rz)
+            self.hist[j].append(1.0)      # ||r||/||b|| = 1 at x = 0
+            if not np.isfinite(rz) or rz <= 0.0:
+                self.hist[j].breakdown = (
+                    "nonfinite" if not np.isfinite(rz)
+                    else "indefinite_preconditioner")
+                self.status[j] = "done"
+                finished.append(j)
+            else:
+                self.status[j] = "active"
+                self.act[j] = True
+        self._pending.clear()
+        return finished
+
+    def _scan_column(self, j: int, vals: np.ndarray, steps: int) -> int:
+        """Walk column ``j`` through the window's pulled scalars with the
+        scalar-pcg acceptance rules; returns the number of accepted
+        iterates (``steps`` when the column ran the whole window)."""
+        accepted = 0
+        for s in range(steps):
+            pAp, rnorm_raw, rz_new = (float(vals[s, i, j]) for i in range(3))
+            if not np.isfinite(pAp) or pAp <= 0.0:
+                self.hist[j].breakdown = (
+                    "nonfinite" if not np.isfinite(pAp)
+                    else "indefinite_curvature")
+                return accepted               # iterate s discarded
+            rel = rnorm_raw / self.bnorm[j]
+            if not np.isfinite(rel):
+                self.hist[j].breakdown = "nonfinite"
+                return accepted               # iterate s discarded
+            accepted = s + 1
+            self.iters[j] += 1
+            self.hist[j].append(rel)
+            if rel < self.tol[j]:
+                self.converged[j] = True
+                return accepted               # iterate s kept
+            if not np.isfinite(rz_new) or rz_new <= 0.0:
+                self.hist[j].breakdown = (
+                    "nonfinite" if not np.isfinite(rz_new)
+                    else "indefinite_preconditioner")
+                return accepted               # iterate s kept
+            if self.iters[j] >= self.maxiter[j]:
+                return accepted               # budget exhausted, no flag
+        return accepted
+
+    def advance(self, steps: int | None = None) -> list[int]:
+        """Run one window of ``steps`` (default ``check_every``) batched
+        iterations, then settle per-column outcomes; returns the columns
+        that finished during this call (converged, broke down, or hit
+        their budget). Idle and done columns are inert."""
+        finished = self._flush_pending()
+        act_idx = np.nonzero(self.act)[0]
+        if act_idx.size == 0:
+            return finished
+        steps = max(1, int(steps if steps is not None else self.check_every))
+        start = (self.X, self.R, self.P, self.RZ)
+        act = torch.as_tensor(self.act).to(self.device)
+        st, scal = start, []
+        for _ in range(steps):
+            st, sc = _pcg_block_step(self.matvec, self.precond, *st, act)
+            scal.append(torch.stack(sc))
+        vals = torch.stack(scal).cpu().numpy()   # (steps, 3, width): one read
+        stop_at = np.full(self.width, steps)
+        for j in act_idx:
+            stop_at[j] = self._scan_column(j, vals, steps)
+            if (stop_at[j] < steps or self.converged[j]
+                    or self.hist[j].breakdown is not None
+                    or self.iters[j] >= self.maxiter[j]):
+                self.act[j] = False
+                self.status[j] = "done"
+                finished.append(int(j))
+        if np.all(stop_at[act_idx] == steps):
+            # every column accepted the whole window (finishing exactly at
+            # its last step is fine: the state is the accepted iterate)
+            self.X, self.R, self.P, self.RZ = st
+            return finished
+        # Replay with per-step masks: a column that accepted stop_at[j]
+        # iterates runs steps 0 .. stop_at[j] - 1 and is frozen after; the
+        # same ops from the same inputs reproduce the accepted prefix.
+        base_act = np.zeros(self.width, bool)
+        base_act[act_idx] = True
+        st = start
+        for s in range(steps):
+            mask = torch.as_tensor(base_act & (stop_at > s)).to(self.device)
+            st, _ = _pcg_block_step(self.matvec, self.precond, *st, mask)
+        self.X, self.R, self.P, self.RZ = st
+        return finished
+
+    def run(self) -> None:
+        """Advance until every loaded column is finished."""
+        while self.active_columns:
+            self.advance()
+
+
+def _pcg_batched(A, B: torch.Tensor, *, precond=None, tol=1e-6,
+                 maxiter: int = 300, check_every: int = 1):
+    """Per-column PCG over an ``(n, k)`` block (the ``pcg`` 2-D route):
+    loads every column into a :class:`BatchedPCG` of width k on ``B``'s
+    device and drains it. ``tol`` may be scalar or ``(k,)``. Returns
+    ``(X, iters, histories)``."""
+    n, k = B.shape
+    tols = np.broadcast_to(np.asarray(tol, np.float64), (k,))
+    eng = BatchedPCG(A, n, k, precond=precond, maxiter=maxiter,
+                     check_every=check_every, dtype=B.dtype,
+                     device=B.device)
+    Bh = B.detach().cpu().numpy()
+    for j in range(k):
+        eng.load(j, Bh[:, j], tol=float(tols[j]))
+    eng.run()
+    return eng.solution(), eng.iters.copy(), list(eng.hist)

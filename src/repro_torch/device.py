@@ -12,7 +12,14 @@ not survive).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a torch dtype (host-side packing of tensors of
+    that dtype), e.g. ``torch.float64`` -> ``float64``."""
+    return torch.empty((), dtype=dtype).numpy().dtype
 
 
 def pin_precision() -> None:

@@ -2,8 +2,8 @@
 
 Faults are declared as plain data (:class:`Fault`) and armed with the
 :func:`inject` context manager; instrumented sites in the factorization
-drivers and (once the server is ported) the serve loop consult the active
-set by name:
+drivers and the server's tick loop (``serve/server.py``) consult the
+active set by name:
 
 * ``"chol.diag"``  -- perturb the updated diagonal tile of column
   ``column`` just before its dense factor: ``kind="nan"`` poisons one

@@ -143,8 +143,17 @@ def test_pcg_zero_rhs_and_2d_rhs():
                    check_every=8)
     assert it == 0 and isinstance(h, PCGHistory) and h == []
     assert bool((x == 0).all())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        pcg(lambda v: At @ v, torch.ones((128, 2), dtype=torch.float64))
+    # a 2-D right-hand side runs per-column CG (tests/test_torch_batched_pcg.py
+    # holds that route to the JAX package case by case)
+    B = torch.ones((128, 2), dtype=torch.float64)
+    B[:, 1] = 0.0
+    X, iters, hists = pcg(lambda v: At @ v, B, check_every=8)
+    x0, it0, h0 = pcg(lambda v: At @ v, B[:, 0], check_every=8)
+    assert X.shape == (128, 2) and list(iters) == [it0, 0]
+    assert len(hists[0]) == len(h0) and hists[1] == []
+    assert bool((X[:, 1] == 0).all())
+    np.testing.assert_allclose(X[:, 0].numpy(), x0.numpy(), rtol=1e-12,
+                               atol=1e-14)
 
 
 @pytest.mark.parametrize("case", ["preconditioner", "operator", "nonfinite"])
