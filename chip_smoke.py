@@ -77,7 +77,24 @@ before it and read just after:
    (``trace_counts_diff``), and log warmup seconds, ticks, occupancy,
    requests/s, p50 / p99 per kind, peak memory, the kernels' launches
    during the drain (none: the read paths are stock torch products) and
-   whether batched and sequential results agree bit for bit.
+   whether batched and sequential results agree bit for bit;
+10. the telemetry layer (``repro_torch.obs``) on residents the paths above
+    built: the main path's left Cholesky with telemetry off and on (the
+    factor, the launches and the dispatch shapes unchanged, ``chol.diag``
+    / ``chol.panel`` once a column, the enabled run within 1.25x + 0.1 s),
+    its Chrome trace held to the schema check of tests/test_obs.py, the
+    same run under torch.profiler (every ``lr_sample`` and ``tile_chain``
+    kernel launched inside a ``chol.panel`` user range; device ms per span
+    name logged), the serve cov2d-32k drain recorded (a ``serve.tick`` span
+    and an ``occupancy`` sample a tick, no kernel launch), and the ranked
+    right Cholesky, sequential and with lookahead, and the flat one on path
+    3's operator (its spans, one ``chol.flush`` per flush, the factor
+    bitwise as with telemetry off); it logs the cost of a disabled span;
+11. mixed-precision storage (the paper's section 7) on path 3's K:
+    ``TLROperator.compress(..., store_dtype=torch.float32)``, gated on half
+    the logical low-rank bytes, the matvec within 1e-4 of ``K x`` and the
+    default left Cholesky at eps 1e-5 (residual 100 eps, solve error
+    1e-2), its kernels running in f64 on the promoted factors.
 
 Then it holds each kernel against its plain PyTorch version on the card
 (f64, f32 and bf16; f64 and f32 for the QR and SVD) at the paths' shapes
@@ -1169,6 +1186,7 @@ def main_path(n: int, profile: str | None) -> dict:
     pivots = pivot_phase(op, K, Z, y, x_true, opts, sec_warm)
     checked = check_phase(op, fact, opts, sec_warm)
     served = serve_main_phase(op, fact, K)
+    telem = telemetry_phase(op, fact, opts)
     # The A-tile ranks batched_gemm gets in the first column (rows 1..nb-1).
     nb = n // tile
     rows = torch.arange(1, nb, device="cuda")
@@ -1187,7 +1205,7 @@ def main_path(n: int, profile: str | None) -> dict:
     return {"launches": launches, "batching": batching,
             "flat": by_batching["flat"], "ranked": by_batching["ranked"],
             "phases": phases, "ranks_a": ranks_a, "reads": reads,
-            **rounding, **pivots, **checked, **served}
+            **rounding, **pivots, **checked, **served, **telem}
 
 
 def read_paths(op, fact, g, reps: int = 20) -> dict:
@@ -1482,7 +1500,9 @@ def right_phase(n: int, profile: str | None) -> dict:
             f"{gemm_shapes_line(shapes['batched_gemm'])}")
         del fact, x, gemm_calls
     out.update(lookahead_phase(op, Z, KZ, y))
+    out.update(telemetry_right_phase(op))
     out.update(fault_phase(op, out["right_cholesky_max_rank"]))
+    out.update(mixed_phase(op, K, Z))
     del op, K, KZ, Z
     torch.cuda.empty_cache()
     for kind, batching, flush in runs:
@@ -1835,7 +1855,7 @@ def pivot_phase(op, K, Z, y, x_true, opts, t_plain: float) -> dict:
     return out
 
 
-# -- phase 12: health checks and the fault matrix ------------------------------------
+# -- phase 12: health checks on the main path ------------------------------------------
 
 
 def check_phase(op, fact, opts, t_plain: float) -> dict:
@@ -1867,7 +1887,7 @@ def check_phase(op, fact, opts, t_plain: float) -> dict:
     return {"main_check": launches}
 
 
-# -- phase 9: the TLR inference server ------------------------------------------
+# -- phase 13: the TLR inference server -----------------------------------------
 
 
 def rel_err(a, b) -> float:
@@ -1924,11 +1944,10 @@ def drive_server(label: str, srv, reqs, t_warm: float, faults_=()) -> dict:
 
 def serve_main_phase(op, fact, K) -> dict:
     """The server on the main path's operator and factor:
-    ``fact.serve(operator=op, slots=SERVE_SLOTS, check_every=4)``, 64
-    requests cycling through ``KINDS`` (rhs from ``default_rng(0)``,
-    pcg_solve tol 10^-U{4..8}, maxiter 100, as examples/serve_gp.py), one
-    solve column poisoned by a ``serve.solve`` fault. Gates: each solve
-    within 1e-10 of ``fact.solve`` on its column, each sample within 1e-10
+    ``fact.serve(operator=op, slots=SERVE_SLOTS, check_every=4)``, the 64
+    requests of ``serve_requests``, one solve column poisoned by a
+    ``serve.solve`` fault. Gates: each solve within 1e-10 of
+    ``fact.solve`` on its column, each sample within 1e-10
     of ``fact.sample(z=draw)``, logdet equal to the memoized value, each
     pcg_solve converged with ``||K x - b|| / ||b|| < 1e-5``, the poisoned
     rid a ``nonfinite_result``, and ``drive_server``'s. Logs whether the
@@ -1937,19 +1956,13 @@ def serve_main_phase(op, fact, K) -> dict:
     import numpy as np
     import torch
     from repro_torch import faults, pcg
-    from repro_torch.serve import KINDS, ServeRequest
+    from repro_torch.serve import KINDS
 
     n = fact.n
     torch.cuda.reset_peak_memory_stats()
     srv, t_warm = sync_time(lambda: fact.serve(
         operator=op, slots=SERVE_SLOTS, check_every=SERVE_CHECK))
-    rng = np.random.default_rng(0)
-    reqs = []
-    for u in range(SERVE_REQUESTS):
-        kind = KINDS[u % len(KINDS)]
-        y = rng.standard_normal(n) if kind in ("solve", "pcg_solve") else None
-        reqs.append(ServeRequest(kind, rhs=y, tol=10.0 ** -rng.integers(4, 9),
-                                 maxiter=100, seed=u))
+    reqs = serve_requests(n)
     poisoned = len(KINDS)           # the second solve request's rid
     out = drive_server("serve cov2d-32k", srv, reqs, t_warm, (faults.Fault(
         site="serve.solve", rid=poisoned),))
@@ -2072,6 +2085,9 @@ def serve_frac_phase(op, K, eps: float) -> dict:
     assert occ >= 0.8, f"serve frac: occupancy {occ:.3f} < 0.8"
     del srv
     return {"frac_serve": out["launches"]}
+
+
+# -- phase 14: the fault matrix ------------------------------------------------------
 
 
 def spike_scale(b: int, r: int, R: int, seed: int) -> tuple[float, float]:
@@ -2208,6 +2224,367 @@ def fault_phase(op, natural_rank: int) -> dict:
     return {"faults": launches}
 
 
+# -- phase 15: telemetry (repro_torch.obs) -----------------------------------------
+
+
+def chrome_trace_schema(obj) -> None:
+    """The schema check of tests/test_obs.py (the part of the Trace Event
+    Format Perfetto validates): the object form, ph / pid / tid / name on
+    every event, ts + dur on complete events, JSON throughout."""
+    assert isinstance(obj, dict) and isinstance(obj["traceEvents"], list)
+    json.dumps(obj)
+    for ev in obj["traceEvents"]:
+        assert ev["ph"] in ("X", "C", "M")
+        assert isinstance(ev["pid"], int) and isinstance(ev["tid"], int)
+        assert isinstance(ev["name"], str)
+        if ev["ph"] == "X":
+            assert ev["ts"] >= 0 and ev["dur"] >= 0
+        if ev["ph"] == "M":
+            assert ev["name"] in ("process_name", "thread_name")
+            assert isinstance(ev["args"]["name"], str)
+
+
+# The port's kernels by the prefix of their device function names
+# (templates are named with their return type, plain functions without).
+KERNEL_PREFIXES = {"bgemm": "batched_gemm", "tile_chain": "tile_chain",
+                   "lr_sample": "lr_sample", "mgs_qr": "batched_qr",
+                   "jacobi_svd": "small_svd"}
+
+
+def kernel_family(name: str) -> str | None:
+    key = name.removeprefix("void ").removeprefix("(anonymous namespace)::")
+    for prefix, family in KERNEL_PREFIXES.items():
+        if key.startswith(prefix):
+            return family
+    return None
+
+
+def profile_spans(fn) -> tuple:
+    """Runs ``fn`` under torch.profiler (CPU and CUDA activities) and reads
+    its Chrome trace: every device kernel, with the host time of the
+    runtime call that launched it (matched by correlation id), against the
+    span user ranges (``record_function``) on the host timeline. Returns
+    ``(out, seconds, spans, kernels)``: span name -> sorted host
+    intervals, and (kernel name, host launch time or None, device us) per
+    kernel."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out, sec = sync_time(fn)
+        t1 = time.perf_counter()
+        path = Path(tmp) / "profile.json"
+        prof.export_chrome_trace(str(path))
+        size = path.stat().st_size
+        t2 = time.perf_counter()
+        events = json.loads(path.read_text())["traceEvents"]
+    xs = [e for e in events if e.get("ph") == "X"]
+    log(f"profile trace: {size} bytes; profiled run and stop "
+        f"{t1 - t0:.3f} s, export {t2 - t1:.3f} s, read "
+        f"{time.perf_counter() - t2:.3f} s; events per category "
+        + json.dumps(dict(collections.Counter(
+            e.get("cat") for e in xs).most_common())))
+    spans = collections.defaultdict(list)
+    for e in xs:
+        if e.get("cat") == "user_annotation":
+            spans[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in xs
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    kernels = [(e["name"], launch_ts.get(e.get("args", {}).get(
+        "correlation")), e["dur"]) for e in xs if e.get("cat") == "kernel"]
+    for v in spans.values():
+        v.sort()
+    return out, sec, dict(spans), kernels
+
+
+def inside(t: float, intervals: list) -> bool:
+    """Whether host time ``t`` falls in one of the sorted ``intervals``."""
+    import bisect
+    i = bisect.bisect_right(intervals, (t, math.inf)) - 1
+    return i >= 0 and intervals[i][0] <= t <= intervals[i][1]
+
+
+def serve_requests(n: int) -> list:
+    """SERVE_REQUESTS requests cycling through ``KINDS`` (rhs from
+    ``default_rng(0)``, pcg_solve tol 10^-U{4..8}, maxiter 100, as
+    examples/serve_gp.py)."""
+    import numpy as np
+    from repro_torch.serve import KINDS, ServeRequest
+    rng = np.random.default_rng(0)
+    reqs = []
+    for u in range(SERVE_REQUESTS):
+        kind = KINDS[u % len(KINDS)]
+        y = rng.standard_normal(n) if kind in ("solve", "pcg_solve") else None
+        reqs.append(ServeRequest(kind, rhs=y, tol=10.0 ** -rng.integers(4, 9),
+                                 maxiter=100, seed=u))
+    return reqs
+
+
+def telemetry_phase(op, fact, opts) -> dict:
+    """The telemetry layer on the main path's operator (cov2d-32k).
+
+    1. The default left Cholesky with telemetry off, then on (the same
+       probe seed). Gates: L's D, U, V and ranks bitwise equal, equal
+       kernel launches, no new dispatch shape, ``chol.diag`` nb times and
+       ``chol.panel`` nb - 1 times in ``stats["telemetry"]``, and the
+       enabled run within 1.25x the disabled one + 0.1 s.
+    2. The recording exported as a Chrome trace (a temporary file), held
+       to the schema check of tests/test_obs.py.
+    3. The enabled factorization once more under torch.profiler: the span
+       user ranges ``chol.factorize`` and ``chol.panel`` appear, and every
+       ``lr_sample`` and ``tile_chain`` kernel was launched inside a
+       ``chol.panel`` range on the host timeline. Logs the device ms of
+       the kernels launched inside each span name.
+    4. The serve cov2d-32k drain (no fault) with telemetry on: one
+       ``serve.tick`` span a tick, the ``occupancy`` counter,
+       ``summary()["telemetry"]``, no kernel launch and no new dispatch
+       shape.
+    5. The cost of one disabled span on this host."""
+    import tempfile
+
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import trace_counts, trace_counts_diff
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    nb = op.nb
+    ops.reset_launch_counts()
+    off, t_off = sync_time(lambda: op.cholesky(opts))
+    launches_off = ops.launch_counts()
+    snap = trace_counts()
+    ops.reset_launch_counts()
+    obs.enable()
+    on, t_on = sync_time(lambda: op.cholesky(opts))
+    tel = obs.disable()
+    launches = ops.launch_counts()
+    new_shapes = trace_counts_diff(snap)
+    rel, same = factor_diff(on, off)
+    snap_on = on.stats["telemetry"]
+    ph = snap_on["phases"]
+    log(f"telemetry cov2d-32k: left Cholesky off {t_off:.3f} s, on "
+        f"{t_on:.3f} s (x{t_on / t_off:.3f}; gate 1.25x + 0.1 s); "
+        f"{len(tel.spans)} spans ({snap_on['spans']} under chol.factorize), "
+        f"per name " + json.dumps({k: v["count"] for k, v in ph.items()})
+        + f"; bitwise {'yes' if same else 'no'} (max rel {rel:.3e}); "
+        f"launches off {json.dumps(launches_off)}, on {json.dumps(launches)}"
+        f"; new dispatch shapes {json.dumps(new_shapes)}")
+    log("telemetry cov2d-32k: span seconds per name (host) " + json.dumps(
+        {k: round(v["seconds"], 4) for k, v in ph.items()}))
+    assert same, "telemetry changed the left factor"
+    assert launches == launches_off, "telemetry changed the kernel launches"
+    assert new_shapes == {}, f"telemetry added dispatch shapes {new_shapes}"
+    assert ph["chol.diag"]["count"] == nb \
+        and ph["chol.panel"]["count"] == nb - 1, "span counts"
+    assert t_on <= 1.25 * t_off + 0.1, "telemetry overhead above its gate"
+    del off
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "telemetry.json"
+        obj = obs.export_chrome_trace(str(path), tel)
+        size = path.stat().st_size
+    chrome_trace_schema(obj)
+    log(f"telemetry cov2d-32k: Chrome trace {len(obj['traceEvents'])} "
+        f"events, {size} bytes; schema check held")
+
+    obs.enable()
+    prof_fact, t_prof, ranges, kernels = profile_spans(
+        lambda: op.cholesky(opts))
+    obs.disable()
+    assert {"chol.factorize", "chol.panel"} <= set(ranges), \
+        f"span user ranges missing from the profile: {sorted(ranges)}"
+    ms_by_span = {name: 0.0 for name in ranges}
+    ms_by_family = collections.Counter()
+    outside, unmatched, sampled = [], 0, 0
+    for name, t_launch, dur in kernels:
+        fam = kernel_family(name)
+        if fam:
+            ms_by_family[fam] += dur / 1e3
+        if t_launch is None:
+            unmatched += 1
+            if fam in ("lr_sample", "tile_chain"):
+                outside.append(name)
+            continue
+        for span, iv in ranges.items():
+            if inside(t_launch, iv):
+                ms_by_span[span] += dur / 1e3
+        if fam in ("lr_sample", "tile_chain"):
+            sampled += 1
+            if not inside(t_launch, ranges["chol.panel"]):
+                outside.append(name)
+    log(f"telemetry cov2d-32k profile: {t_prof:.3f} s under the profiler, "
+        f"{len(kernels)} device kernels ({unmatched} without a launch "
+        f"record), user ranges " + json.dumps(
+            {k: len(v) for k, v in sorted(ranges.items())})
+        + f"; lr_sample + tile_chain launches {sampled}, outside chol.panel "
+        f"{len(outside)}")
+    log("telemetry cov2d-32k profile: device ms of the kernels launched "
+        "inside each span name (nested names overlap) " + json.dumps(
+            {k: round(v, 3) for k, v in sorted(ms_by_span.items())})
+        + "; the port's kernels " + json.dumps(
+            {k: round(v, 3) for k, v in sorted(ms_by_family.items())}))
+    assert sampled > 0 and not outside, \
+        f"{len(outside)} sampling kernels outside chol.panel ranges"
+    del prof_fact
+
+    srv, t_warm = sync_time(lambda: fact.serve(
+        operator=op, slots=SERVE_SLOTS, check_every=SERVE_CHECK))
+    obs.enable()
+    out = drive_server("telemetry serve cov2d-32k", srv,
+                       serve_requests(fact.n), t_warm)
+    stel = obs.disable()
+    summ = out["stats"]
+    ticks = sum(s.name == "serve.tick" for s in stel.spans)
+    occ = [c for c in stel.counters if c[0] == "occupancy"]
+    log(f"telemetry serve cov2d-32k: {ticks} serve.tick spans for "
+        f"{summ['ticks']} ticks, {len(occ)} occupancy samples; serve span "
+        f"seconds " + json.dumps({k: round(v["seconds"], 4) for k, v in
+                                  summ["telemetry"]["phases"].items()}))
+    assert ticks == summ["ticks"] and len(occ) == summ["ticks"]
+    assert "telemetry" in summ
+    assert all(v == 0 for v in out["launches"].values()), \
+        "the serve drain launched kernels"
+    del srv
+
+    reps = 200_000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        with obs.span("x", cat="factor"):
+            pass
+    per = (time.perf_counter() - t0) / reps
+    log(f"telemetry: one disabled span costs {per * 1e9:.1f} ns on this host "
+        f"(over {reps} spans); phase {time.perf_counter() - t_phase:.1f} s")
+    return {"telemetry": launches, "telemetry_serve": out["launches"]}
+
+
+def telemetry_right_phase(op) -> dict:
+    """Telemetry on the right path's operator (cov2d-8k-right): the ranked
+    right Cholesky, sequential and with ``lookahead=True``, and the flat
+    sequential one, each with telemetry off and then on. Gates: the
+    ``chol.flush``, ``chol.syrk`` and ``algebra.syrk_column`` spans appear,
+    ``round.bucket`` on the ranked runs and ``algebra.round_tiles`` on the
+    flat one (the ranked path rounds through the bucket cores, in both
+    packages), one ``chol.flush`` span per flush, and the factor bitwise
+    equal to the run with telemetry off."""
+    import dataclasses
+
+    from repro_torch import CholOptions, obs
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    out = {}
+    base = CholOptions(eps=EPS, algo="right", batching="ranked")
+    for key, opts, want in (
+            ("ranked", base, "round.bucket"),
+            ("ranked_lookahead", dataclasses.replace(base, lookahead=True),
+             "round.bucket"),
+            ("flat", dataclasses.replace(base, batching="flat"),
+             "algebra.round_tiles")):
+        off, t_off = sync_time(lambda: op.cholesky(opts))
+        ops.reset_launch_counts()
+        obs.enable()
+        on, t_on = sync_time(lambda: op.cholesky(opts))
+        tel = obs.disable()
+        launches = ops.launch_counts()
+        counts = collections.Counter(s.name for s in tel.spans)
+        rel, same = factor_diff(on, off)
+        log(f"telemetry right {key}: off {t_off:.3f} s, on {t_on:.3f} s; "
+            f"spans {json.dumps(dict(sorted(counts.items())))}; flushes "
+            f"{on.stats['flushes']}; bitwise {'yes' if same else 'no'} (max "
+            f"rel {rel:.3e}); launches {json.dumps(launches)}")
+        assert {"chol.flush", "chol.syrk", "algebra.syrk_column",
+                want} <= set(counts), f"telemetry right {key}: spans"
+        assert counts["chol.flush"] == on.stats["flushes"]
+        assert same, f"telemetry right {key}: factor differs"
+        out[f"telemetry_right_{key}"] = launches
+        del off, on
+    log(f"telemetry right: phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# -- phase 16: mixed-precision storage (compress(store_dtype=)) ------------------
+
+
+@contextlib.contextmanager
+def dtype_log():
+    """While open, counts the sampling and rounding kernels' calls per
+    (kernel, dtype) of their first operand (installed by the smoke only)."""
+    from repro_torch.kernels import ops
+    counts = collections.Counter()
+    names = ("batched_gemm", "tile_chain", "lr_sample", "batched_qr")
+    inner = {name: getattr(ops, name) for name in names}
+
+    def wrap(name):
+        def call(*args, **kw):
+            counts[(name, str(args[0].dtype).removeprefix("torch."))] += 1
+            return inner[name](*args, **kw)
+        return call
+    for name in names:
+        setattr(ops, name, wrap(name))
+    try:
+        yield counts
+    finally:
+        for name in names:
+            setattr(ops, name, inner[name])
+
+
+def mixed_phase(op, K, Z) -> dict:
+    """The paper's section 7 mixed-precision storage on the right path's K
+    (N = 8192, tile 128): ``TLROperator.compress(K, 128, 128, 1e-8,
+    store_dtype=torch.float32)``. Gates (tests/test_mixed_precision.py):
+    the logical low-rank bytes half those of the f64 operator ``op`` (the
+    same compression in f64), ``op @ x`` within 1e-4 of ``K x``
+    (relative), and the default left Cholesky at eps 1e-5, bs 8 meets the
+    randomized residual gate (100 eps) with a solve error below 1e-2. Logs
+    the compress and factor seconds and the kernels' launches per dtype:
+    they run in f64 on the promoted factors."""
+    import torch
+    from repro_torch import CholOptions, TLROperator
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    eps = 1e-5
+    ops.reset_launch_counts()
+    with dtype_log() as by_dtype:
+        op32, t_comp = sync_time(lambda: TLROperator.compress(
+            K, TILE_RIGHT, TILE_RIGHT, 1e-8, store_dtype=torch.float32))
+        fact, t_fact = sync_time(lambda: op32.cholesky(
+            CholOptions(eps=eps, bs=8)))
+    launches = ops.launch_counts()
+    m32, m64 = op32.memory_stats(), op.memory_stats()
+    g = torch.Generator(device=K.device).manual_seed(5)
+    x = torch.randn((op.n,), generator=g, device=K.device, dtype=K.dtype)
+    Kx = K @ x
+    mv = float((op32 @ x - Kx).norm() / Kx.norm())
+    resid = left_residual(K, fact, Z)
+    sol = float((fact.solve(Kx) - x).norm() / x.norm())
+    log(f"mixed f32 storage: compress {t_comp:.3f} s (U/V "
+        f"{m32['store_dtype']}, D {m32['compute_dtype']}), low-rank bytes "
+        f"{m32['lowrank_bytes_logical']} against f64 "
+        f"{m64['lowrank_bytes_logical']}, ranks equal "
+        f"{'yes' if torch.equal(op32.ranks, op.ranks) else 'no'}; matvec rel "
+        f"err {mv:.3e} (gate 1e-4); left Cholesky eps {eps:g} bs 8 in "
+        f"{t_fact:.3f} s, L {str(fact.L.U.dtype).removeprefix('torch.')}, "
+        f"residual {resid:.3e} (gate {100 * eps:.0e}), solve rel err "
+        f"{sol:.3e} (gate 1e-2); kernel calls per dtype "
+        + json.dumps({f"{k} {d}": c for (k, d), c in sorted(
+            by_dtype.items())}) + f"; launches {json.dumps(launches)}")
+    assert 2 * m32["lowrank_bytes_logical"] == m64["lowrank_bytes_logical"]
+    assert mv <= 1e-4, "mixed matvec disagrees with K"
+    assert resid <= 100 * eps, "mixed factor residual above 100 eps"
+    assert sol < 1e-2, "mixed solve error"
+    for name in MAIN_KERNELS:
+        assert launches[name] > 0, f"kernel {name} not launched (mixed)"
+    assert all(d == "float64" for _, d in by_dtype), \
+        "a kernel ran below the working precision"
+    log(f"mixed f32 storage: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"mixed": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=32768)
@@ -2285,7 +2662,11 @@ def main() -> int:
                    "right_ldlt_ranked_lookahead", "faults")},
                **{key: main[key] for key in (
                    "main_pivot_frobenius", "main_pivot_power",
-                   "main_check")}}
+                   "main_check", "telemetry", "telemetry_serve")},
+               **{key: right[key] for key in (
+                   "telemetry_right_ranked",
+                   "telemetry_right_ranked_lookahead",
+                   "telemetry_right_flat", "mixed")}}
     log(f"main path batching: auto -> {main['batching']} (main_{other}: "
         f"the same operator factored with batching={other})")
     kernels = []

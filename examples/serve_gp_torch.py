@@ -11,6 +11,7 @@ versions of the kernels.
 
 Run:  PYTHONPATH=src python examples/serve_gp_torch.py [--n 2048] [--slots 8]
       [--device cpu]
+      [--trace out.json]   # Perfetto trace: per-tick pack/dispatch/sync
 """
 
 import argparse
@@ -19,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import (CholOptions, TLROperator, covariance_problem,
                               trace_counts, trace_counts_diff)
 from repro_torch.device import resolve_device
@@ -31,7 +33,7 @@ def _clock(dev) -> float:
     return time.perf_counter()
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=2048)
     ap.add_argument("--tile", type=int, default=128)
@@ -39,8 +41,14 @@ def main():
     ap.add_argument("--requests", type=int, default=48)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
-    args = ap.parse_args()
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="record telemetry and write a Chrome-trace / "
+                         "Perfetto JSON (load at ui.perfetto.dev)")
+    args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+
+    if args.trace:
+        obs.enable()
 
     pts, K = covariance_problem(args.n, 2, args.tile, geometry="ball",
                                 seed=3, device=dev)
@@ -94,6 +102,15 @@ def main():
         print(f"pcg_solve: {sum(r.converged for r in pcg)}/{len(pcg)} "
               f"converged, iterations "
               f"{sorted(r.iterations for r in pcg)}")
+
+    if args.trace:
+        obs.record_retraces()
+        obs.export_chrome_trace(args.trace)
+        snap = obs.metrics_snapshot(cats=("serve",))
+        obs.disable()
+        tick = snap["phases"].get("serve.tick", {})
+        print(f"wrote {args.trace}: {snap['spans']} serve spans over "
+              f"{tick.get('count', 0)} ticks")
 
 
 if __name__ == "__main__":

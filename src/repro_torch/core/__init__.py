@@ -27,15 +27,15 @@ from .generators import (ball_points, covariance_matrix, covariance_problem,
 from .health import (BreakdownReport, FactorizationBreakdown, HealthEvent,
                      HealthMonitor, RetryPolicy, column_flags)
 from .operator import TLRFactorization, TLROperator
-from .ordering import kd_tree_ordering
+from .ordering import kd_tree_ordering, morton_ordering
 from .precond import NewtonSchulzInfo, tlr_newton_schulz
 from .solve import (BatchedPCG, PCGHistory, pcg, tile_perm_to_element_perm,
                     tlr_matvec, tlr_tri_matvec, tlr_trsv,
                     tlr_trsv_reference)
 from .stages import (LookaheadSchedule, Schedule, SequentialSchedule, Stage,
                      build_deps, run_graph)
-from .tlr import (TLRMatrix, num_tiles, tlr_to_dense, tril_index,
-                  tril_pairs, zeros_like_structure)
+from .tlr import (TLRMatrix, num_tiles, rank_heatmap, tlr_to_dense,
+                  tril_index, tril_pairs, zeros_like_structure)
 
 __all__ = [
     "ARAParams", "BatchPlan", "BatchedPCG", "BreakdownReport", "CholOptions",
@@ -50,9 +50,9 @@ __all__ = [
     "exp_covariance", "fractional_diffusion", "fractional_diffusion_matrix",
     "fractional_diffusion_points", "fractional_diffusion_problem",
     "generalize", "grid_points", "kd_tree_ordering", "matern32_covariance",
-    "num_tiles", "offd_index", "offd_pairs", "pcg", "plan_rank_buckets",
-    "rank_ladder", "resolve_batching", "resolve_policy", "robust_cholesky",
-    "run_ara_fused", "run_graph", "spectral_norm_est", "spectral_norm_est_op",
+    "morton_ordering", "num_tiles", "offd_index", "offd_pairs", "pcg",
+    "plan_rank_buckets", "rank_heatmap", "rank_ladder", "resolve_batching",
+    "resolve_policy", "robust_cholesky", "run_ara_fused", "run_graph", "spectral_norm_est", "spectral_norm_est_op",
     "symmetrize", "tile_perm_to_element_perm", "tile_plan", "tlr_add_diag",
     "tlr_axpy", "tlr_cholesky", "tlr_gemm", "tlr_ldlt", "tlr_matvec",
     "tlr_newton_schulz", "tlr_round", "tlr_round_tiles", "tlr_scale",

@@ -53,6 +53,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import obs
 from .batching import bucket_width, bucketed_round_tiles, resolve_batching
 from .buckets import _bucket_ladder, _bucket_up, to_device
 from .tlr import TLRMatrix, tril_index, tril_pairs
@@ -291,6 +292,7 @@ def _compress_dense_impl(T, eps: float, *, r_out: int, rel: bool):
     return _truncate_svd(W, s, Z, Q, None, eps, r_out, rel)
 
 
+@obs.traced("algebra.round_tiles", cat="algebra")
 def tlr_round_tiles(U: torch.Tensor, V: torch.Tensor, eps: float,
                     r_out: int | None = None, *, rel: bool = False,
                     ranks=None, batching: str = "flat"):
@@ -328,6 +330,7 @@ def tlr_round_tiles(U: torch.Tensor, V: torch.Tensor, eps: float,
     return _compress_dense_impl(dense, eps, r_out=r_out, rel=rel)
 
 
+@obs.traced("algebra.round", cat="algebra")
 def tlr_round(A, eps: float, r_max_out: int | None = None, *,
               rel: bool = False, batching: str = "flat"):
     """Recompress every off-diagonal tile of ``A`` (a ``TLRMatrix`` or
@@ -583,6 +586,7 @@ def _as_tiles(X) -> TLRTiles:
                     f"got {type(X).__name__}")
 
 
+@obs.traced("algebra.gemm", cat="algebra")
 def tlr_gemm(A, B, eps: float, r_max_out: int | None = None, *,
              rel: bool = False, batching: str = "flat") -> TLRTiles:
     """C = A @ B for TLR operands, compressed at ``eps``.
@@ -614,7 +618,9 @@ def tlr_gemm(A, B, eps: float, r_max_out: int | None = None, *,
         wb = bucket_width(Gb.ranks, Gb.r_max)
         Ua, Va = Ua[:, :, :wa], Va[:, :, :wa]
         Ub, Vb = Ub[:, :, :wb], Vb[:, :, :wb]
-    Ua, Va, Ub, Vb = (x.contiguous() for x in (Ua, Va, Ub, Vb))
+    # Factors stored in a lower precision are promoted to the working one.
+    Ua, Va, Ub, Vb = (x.to(Ga.D.dtype).contiguous()
+                      for x in (Ua, Va, Ub, Vb))
     Dc, U, V, ranks = _gemm_core(
         Ga.D.contiguous(), Ua, Va, Ga.ranks, Gb.D.contiguous(), Ub, Vb,
         eps, nb=Ga.nb, r_out=r_out, rel=rel)
@@ -661,6 +667,7 @@ def _syrk_buckets(nb: int):
     return out
 
 
+@obs.traced("algebra.syrk", cat="algebra")
 def tlr_syrk(A: TLRMatrix, L: TLRMatrix, eps: float,
              r_max_out: int | None = None, *, rel: bool = False,
              batching: str = "flat") -> TLRMatrix:
@@ -693,7 +700,9 @@ def tlr_syrk(A: TLRMatrix, L: TLRMatrix, eps: float,
     # dense accumulation buffer: packed lower tiles, then the nb diagonals
     acc = A.D.new_zeros((nt + nb, b, b))
     if nt:
-        acc[:nt] = ops.batched_gemm(A.U, A.V.transpose(1, 2).contiguous(),
+        acc[:nt] = ops.batched_gemm(A.U.to(A.dtype),
+                                    A.V.transpose(1, 2).to(A.dtype)
+                                    .contiguous(),
                                     A.ranks)
     acc[nt:] = A.D
 
@@ -744,6 +753,7 @@ def _syrk_column_pairs(nb: int, k: int):
     return i * (i - 1) // 2 + j, a, c
 
 
+@obs.traced("algebra.syrk_column", cat="algebra")
 def tlr_syrk_column(accU: torch.Tensor, accV: torch.Tensor, used,
                     D: torch.Tensor, Up: torch.Tensor, Vn: torch.Tensor,
                     ranks: torch.Tensor, dk, k: int, *,

@@ -218,6 +218,27 @@ def run_ara_fused(sample_fn, samplet_fn, data, draw: Draw, *, T: int, b: int,
     return state.Q, B, state.rank, state
 
 
+def run_ara_host(step_fn, sample_fn, samplet_fn, data, draw: Draw, *,
+                 T: int, b: int, p: ARAParams, dtype, device,
+                 share_omega: bool = True):
+    """Host-driven ARA: a python loop over block iterations, convergence
+    read on the host after each one, then the projection ``B = Op^T Q``.
+    Returns ``(Q, B, ranks, state)``.
+
+    ``step_fn(data, state, draw)`` runs one iteration: :func:`ara_iteration`
+    bound to ``sample_fn``, ``p``, ``share_omega``, ``T`` and ``b`` (e.g.
+    with ``functools.partial``), or a wrapper of it. ``sample_fn`` is
+    accepted for the signature of the JAX package's ``run_ara_host`` and
+    not called here."""
+    state = init_state(T, b, p, dtype, device)
+    for _ in range(p.iters):
+        state = step_fn(data, state, draw)
+        if bool(state.converged.all()):
+            break
+    B = samplet_fn(data, state.Q)
+    return state.Q, B, state.rank, state
+
+
 def dense_batch_sampler(A: torch.Tensor):
     """Samplers for a batch of dense operators A: (T, b, m)."""
 

@@ -19,9 +19,9 @@ rank are exactly zero, so slicing a tile's factors to any width >= its rank
 is exact. Tiles of rank 0 are skipped outright: no QR, no SVD, no phantom
 rank 1.
 
-Not ported (ROADMAP Queue 1 items 7-8): the tile-mesh sharding hooks
+Not ported (ROADMAP Queue 1 item 8): the tile-mesh sharding hooks
 (``set_tile_mesh``, ``tile_dp_size``, ``pad_tile_batch``,
-``shard_tile_batch``) and the bucket telemetry (``bucket_span_attrs``).
+``shard_tile_batch``).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .. import obs
 from .buckets import (_bucket_ladder, _bucket_up, to_device, trace_count,
                       trace_event)
 from ..kernels import ops
@@ -416,29 +417,49 @@ def bucketed_round_tiles(U: torch.Tensor, V: torch.Tensor, ranks, eps: float,
     plan = tile_plan(ranks, w_in)
     sig = (b, str(U.dtype), dev.type, bool(rel))
     for bk in plan.buckets:
-        idx = plan_index(plan, bk, dev)
-        w = bk.width
-        Ug = _gather_padded(U[:, :, :w], idx, bk.padded)
-        if w <= b:
-            k = min(r_out, w)
-            trace_event("batching", ("round", bk.padded, w, k) + sig)
-            Vg = _gather_padded(V[:, :, :w], idx, bk.padded)
-            Ub, Vb, rb, eb = _round_factors_impl(Ug, Vg, eps, r_out=k,
-                                                 rel=rel)
-        else:
-            k = min(r_out, b)
-            trace_event("batching", ("densify", bk.padded, w, k) + sig)
-            rg = np.zeros(bk.padded, np.int32)
-            rg[:bk.count] = plan.ranks_host[bk.idx]
-            dense = ops.batched_gemm(
-                Ug, _gather_padded(V[:, :, :w].transpose(1, 2), idx,
-                                   bk.padded),
-                to_device(rg, dev))
-            Ub, Vb, rb, eb = _compress_dense_impl(dense, eps, r_out=k,
-                                                  rel=rel)
-        n = bk.count
-        outU[idx, :, :k] = Ub[:n]
-        outV[idx, :, :k] = Vb[:n]
-        out_ranks[idx] = rb[:n]
-        out_err[idx] = eb[:n].to(out_err.dtype)
+        attrs = {}
+        if obs.enabled():
+            attrs = bucket_span_attrs(plan, bk, b, r_out, U.element_size())
+        with obs.span("round.bucket", cat="algebra", **attrs):
+            idx = plan_index(plan, bk, dev)
+            w = bk.width
+            Ug = _gather_padded(U[:, :, :w], idx, bk.padded)
+            if w <= b:
+                k = min(r_out, w)
+                trace_event("batching", ("round", bk.padded, w, k) + sig)
+                Vg = _gather_padded(V[:, :, :w], idx, bk.padded)
+                Ub, Vb, rb, eb = _round_factors_impl(Ug, Vg, eps, r_out=k,
+                                                     rel=rel)
+            else:
+                k = min(r_out, b)
+                trace_event("batching", ("densify", bk.padded, w, k) + sig)
+                rg = np.zeros(bk.padded, np.int32)
+                rg[:bk.count] = plan.ranks_host[bk.idx]
+                dense = ops.batched_gemm(
+                    Ug, _gather_padded(V[:, :, :w].transpose(1, 2), idx,
+                                       bk.padded),
+                    to_device(rg, dev))
+                Ub, Vb, rb, eb = _compress_dense_impl(dense, eps, r_out=k,
+                                                      rel=rel)
+            n = bk.count
+            outU[idx, :, :k] = Ub[:n]
+            outV[idx, :, :k] = Vb[:n]
+            out_ranks[idx] = rb[:n]
+            out_err[idx] = eb[:n].to(out_err.dtype)
     return outU, outV, out_ranks, out_err
+
+
+def bucket_span_attrs(plan: TilePlan, bk: RankBucket, b: int, r_out: int,
+                      itemsize: int) -> dict:
+    """Telemetry attributes for one rank-bucket launch (enabled mode
+    only): the dispatched FLOPs (``flops_padded``, the analytic count of
+    :meth:`TilePlan.bucket_flops` at the bucket's dispatch shape, densify
+    branch included) against the useful ones (scaled by the bucket's true
+    rank mass over its padded ``count x width`` slots), plus the memory
+    traffic of the gather + scatter marshaling."""
+    fl_pad = _round_core_flops(bk.padded, b, bk.width, min(r_out, bk.width))
+    useful = float(plan.ranks_host[bk.idx].sum())
+    fl = fl_pad * useful / float(bk.padded * bk.width)
+    nbytes = 2 * (bk.padded * b * bk.width + bk.count * b * r_out) * itemsize
+    return {"width": bk.width, "count": bk.count, "padded": bk.padded,
+            "flops": fl, "flops_padded": fl_pad, "bytes": nbytes}

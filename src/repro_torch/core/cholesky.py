@@ -66,7 +66,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .. import faults
+from .. import faults, obs
 from .algebra import tlr_round_tiles, tlr_syrk_column
 from .ara import (ARAParams, ara_compress_dense, ara_iteration, init_state,
                   rank_overflow, run_ara_fused, torch_probes)
@@ -203,7 +203,10 @@ def _gather_A_tiles(A: TLRMatrix, rows, k: int, perm: np.ndarray, Tb: int,
     low = oi > ok
     idx_h = np.where(low, oi * (oi - 1) // 2 + ok, ok * (ok - 1) // 2 + oi)
     idx = torch.as_tensor(idx_h, dtype=torch.long, device=A.device)
-    U0, V0 = A.U[:, :, :w][idx], A.V[:, :, :w][idx]
+    # Factors stored in a lower precision (``compress(store_dtype=)``) are
+    # promoted here: the A-term kernel takes one dtype for all operands.
+    U0 = A.U[:, :, :w][idx].to(A.dtype)
+    V0 = A.V[:, :, :w][idx].to(A.dtype)
     if not low.all():
         f = torch.as_tensor(~low, device=A.device)[:, None, None]
         U0, V0 = torch.where(f, V0, U0), torch.where(f, U0, V0)
@@ -784,8 +787,26 @@ def tlr_ldlt(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
 
 def _dispatch(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
     _validate(opts)
-    return _factorize_right(A, opts) if opts.algo == "right" \
-        else _factorize(A, opts)
+    driver = _factorize_right if opts.algo == "right" else _factorize
+    if not obs.enabled():
+        return driver(A, opts)
+    # Telemetry: one root span per factorization; its subtree becomes the
+    # ``stats["telemetry"]`` metrics snapshot (per-phase FLOP/s,
+    # padded-vs-useful ratios), with the plan-level analytic ratio from
+    # ``stats["policy"]`` copied alongside for parity checks, and the
+    # dispatch-shape registry folded in as a counter sample. One device,
+    # no mesh: the JAX package's attributes when it runs without one.
+    sched = "lookahead" if (opts.lookahead and opts.algo == "right") \
+        else "sequential"
+    with obs.span("chol.factorize", cat="factor", algo=opts.algo,
+                  nb=A.nb, b=A.b, schedule=sched, devices=1,
+                  mesh="") as root:
+        fact = driver(A, opts)
+    obs.record_retraces()
+    snap = obs.metrics_snapshot(root=root)
+    snap["padded_flop_ratio_plan"] = fact.stats["policy"]["padded_flop_ratio"]
+    fact.stats["telemetry"] = snap
+    return fact
 
 
 def _factorize(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
@@ -863,17 +884,19 @@ def _factorize(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
                     perm[[k, pidx]] = perm[[pidx, k]]
                     Dsum_all[[k, pidx]] = Dsum_all[[pidx, k]]
                     _swap_L_rows(Lout, k, pidx)
-            Akk = A.D[int(perm[k])]
-            if k > 0:
-                Uk, Vk = _gather_L_row(Lout, k, k, k, wL[0])
-                dk = dvec[:k] if opts.ldl else None
-                Dsum = pipe.diag_update(Uk, Vk, dk)
-                if opts.schur and not opts.ldl:
-                    Akk = _schur_compensate(Akk, Dsum, opts.schur, opts.eps,
-                                            opts.bs, pipe.draw(k))
-                else:
-                    Akk = Akk - Dsum
-            factor_diag(k, Akk)
+            with obs.span("chol.diag", cat="factor", k=k):
+                Akk = A.D[int(perm[k])]
+                if k > 0:
+                    Uk, Vk = _gather_L_row(Lout, k, k, k, wL[0])
+                    dk = dvec[:k] if opts.ldl else None
+                    Dsum = pipe.diag_update(Uk, Vk, dk)
+                    if opts.schur and not opts.ldl:
+                        Akk = _schur_compensate(Akk, Dsum, opts.schur,
+                                                opts.eps, opts.bs,
+                                                pipe.draw(k))
+                    else:
+                        Akk = Akk - Dsum
+                factor_diag(k, Akk)
 
         return fn
 
@@ -984,12 +1007,19 @@ def _factorize(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
             pipe.begin_column()
             run = _column_ara_fused if opts.mode == "fused" \
                 else _column_ara_dynamic
-            Q, Vnew, ranks, info = run(pipe, A, Lout, rows, k, perm, dvec,
-                                       Lkk, dk_new, ladder, (wA, wL[0]))
-            if faults.active():
-                Q = faults.corrupt_panel(Q, k)
-            info["wL"] = wL[0]
-            return Q, Vnew, ranks, ranks.cpu().numpy(), info
+            with obs.span("chol.panel", cat="factor", k=k) as psp:
+                Q, Vnew, ranks, info = run(pipe, A, Lout, rows, k, perm,
+                                           dvec, Lkk, dk_new, ladder,
+                                           (wA, wL[0]))
+                if faults.active():
+                    Q = faults.corrupt_panel(Q, k)
+                info["wL"] = wL[0]
+                ranks_h = ranks.cpu().numpy()
+                if obs.enabled():
+                    psp.set(T=info["T"], Tb=info["Tb"], Jb=info["Jb"],
+                            iters=info["iters"],
+                            rank_hist=obs.rank_hist(ranks_h, r_out))
+            return Q, Vnew, ranks, ranks_h, info
 
         def commit(Q, Vnew, ranks, ranks_h, info, t0):
             if ranked:
@@ -1120,8 +1150,9 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
 
     # Accumulation buffers: every off-diagonal tile's running low-rank
     # concatenation, seeded with A's factors and updated in place.
-    accU = A.U.new_zeros((nt, b, w_acc))
-    accV = A.V.new_zeros((nt, b, w_acc))
+    # In the working precision even when A's factors are stored lower.
+    accU = A.D.new_zeros((nt, b, w_acc))
+    accV = A.D.new_zeros((nt, b, w_acc))
     accU[:, :, :A.r_max] = A.U
     accV[:, :, :A.r_max] = A.V
     tile_w = tile_plan(A.ranks, A.r_max).ranks_host.copy() if ranked \
@@ -1151,7 +1182,11 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
                                         health)
 
     def _diag_stage(k: int):
-        return lambda: factor_diag(k, D[k])
+        def fn():
+            with obs.span("chol.diag", cat="factor", k=k):
+                factor_diag(k, D[k])
+
+        return fn
 
     def _host_panel(c: dict) -> None:
         """The panel's ranks and error estimates on the host, and its
@@ -1159,6 +1194,11 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
         if "ranks_h" in c:
             return
         ranks_h = c["ranks"].cpu().numpy()
+        psp = c.pop("psp")
+        if obs.enabled():
+            # The panel span closed before this read; its args are the
+            # recorded span's, so the histogram still lands on it.
+            psp.set(rank_hist=obs.rank_hist(ranks_h, r_p))
         # A rank-0 panel contributes an exactly-zero Schur update, so the
         # ranked trailing update skips it: no append, no growth.
         wk = (bucket_width(ranks_h, r_p) if int(ranks_h.max(initial=0))
@@ -1178,19 +1218,24 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
         c = col[k]
 
         def compute():
-            if ranked:
-                Q, B, ranks, err = bucketed_round_tiles(
-                    accU[tidx], accV[tidx], st["tile_w"][tidx_np], opts.eps,
-                    r_out=r_p)
-            else:
-                aU = _pad_axis(accU[tidx], Tb)
-                aV = _pad_axis(accV[tidx], Tb)
-                Q, B, ranks, err = tlr_round_tiles(aU, aV, opts.eps,
-                                                   r_out=r_p)
-            Vn = _trsm(c["Lkk"], c["dk"], B, opts.ldl)
-            Qs = Q[:T]
-            if faults.active():
-                Qs = faults.corrupt_panel(Qs, k)
+            with obs.span("chol.panel", cat="factor", k=k, T=T,
+                          Tb=Tb) as psp:
+                if ranked:
+                    Q, B, ranks, err = bucketed_round_tiles(
+                        accU[tidx], accV[tidx], st["tile_w"][tidx_np],
+                        opts.eps, r_out=r_p)
+                else:
+                    aU = _pad_axis(accU[tidx], Tb)
+                    aV = _pad_axis(accV[tidx], Tb)
+                    Q, B, ranks, err = tlr_round_tiles(aU, aV, opts.eps,
+                                                       r_out=r_p)
+                Vn = _trsm(c["Lkk"], c["dk"], B, opts.ldl)
+                Qs = Q[:T]
+                if faults.active():
+                    Qs = faults.corrupt_panel(Qs, k)
+            # The ranks reach the host at the column's first update
+            # (``_host_panel``), which sets the span's rank histogram.
+            c["psp"] = psp
             return Qs, Vn[:T], ranks[:T], err[:T]
 
         def commit(Qs, Vns, ranks, err):
@@ -1267,23 +1312,25 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
 
         return fn, (check if health is not None else None)
 
-    def _flush() -> None:
+    def _flush(k: int) -> None:
         # Recompress every tile's accumulated concatenation back to width b
         # in one rounding pass over the whole grid (tiles of factored
         # columns are dead; rounding them too keeps one batch shape, as in
         # the JAX package): one r_max-wide batch, or one per rank bucket
         # of the tracked content widths.
-        if ranked:
-            Uc, Vc, rc, _ = bucketed_round_tiles(accU, accV, st["tile_w"],
-                                                 opts.eps, r_out=b)
-            st["tile_w"] = rc.cpu().numpy().astype(np.int64)
-        else:
-            Uc, Vc, _, _ = tlr_round_tiles(accU, accV, opts.eps, r_out=b)
-            st["used"] = b
-        accU.zero_()
-        accV.zero_()
-        accU[:, :, :b] = Uc
-        accV[:, :, :b] = Vc
+        with obs.span("chol.flush", cat="factor", k=k):
+            if ranked:
+                Uc, Vc, rc, _ = bucketed_round_tiles(
+                    accU, accV, st["tile_w"], opts.eps, r_out=b)
+                st["tile_w"] = rc.cpu().numpy().astype(np.int64)
+            else:
+                Uc, Vc, _, _ = tlr_round_tiles(accU, accV, opts.eps,
+                                               r_out=b)
+                st["used"] = b
+            accU.zero_()
+            accV.zero_()
+            accU[:, :, :b] = Uc
+            accV[:, :, :b] = Vc
         stats["flushes"] += 1
 
     def _update_stage(k: int, part: str):
@@ -1326,17 +1373,21 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
                         tw = st["tile_w"]
                         high = int(tw[trail].max()) if trail.size else 0
                         if high + wk > w_acc:
-                            _flush()
+                            _flush(k)
                     if wk:
-                        tlr_syrk_column(accU, accV, st["tile_w"], D,
-                                        Qs[:, :, :wk], Vns[:, :, :wk],
-                                        ranks, dk, k, part=part)
+                        with obs.span("chol.syrk", cat="factor", k=k, wk=wk,
+                                      T=T, part=part):
+                            tlr_syrk_column(accU, accV, st["tile_w"], D,
+                                            Qs[:, :, :wk], Vns[:, :, :wk],
+                                            ranks, dk, k, part=part)
                         st["tile_w"][bump] += wk
                 else:
                     if part != "tail" and st["used"] + r_p > w_acc:
-                        _flush()
-                    tlr_syrk_column(accU, accV, st["used"], D, Qs, Vns,
-                                    ranks, dk, k, part=part)
+                        _flush(k)
+                    with obs.span("chol.syrk", cat="factor", k=k, wk=wk,
+                                  T=T, part=part):
+                        tlr_syrk_column(accU, accV, st["used"], D, Qs, Vns,
+                                        ranks, dk, k, part=part)
                     if part != "head":
                         st["used"] += r_p
             if side is not None:
@@ -1346,11 +1397,14 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
                 c["tail_done" if on_side else "head_done"] = ev
             if part == "head":
                 return
-            if part == "all" and D.is_cuda:
+            if part == "all":
                 # Drain the column's work before timing it (the JAX
                 # sequential driver blocks here too); the lookahead
-                # schedule syncs once, after the graph.
-                torch.cuda.synchronize(D.device)
+                # schedule syncs once, after the graph. The span makes the
+                # host-sync gap visible.
+                with obs.span("chol.sync", cat="factor", k=k):
+                    if D.is_cuda:
+                        torch.cuda.synchronize(D.device)
             if ranked:
                 stats["append_widths"].append(wk)
             stats["column_iters"].append(1)
@@ -1426,10 +1480,12 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
     sched = run_graph(stages,
                       LookaheadSchedule() if lookahead
                       else SequentialSchedule())
-    if lookahead and D.is_cuda:
-        if side is not None:
-            torch.cuda.current_stream(A.device).wait_stream(side)
-        torch.cuda.synchronize(D.device)
+    if lookahead:
+        with obs.span("chol.sync", cat="factor", k=nb - 1):
+            if side is not None:
+                torch.cuda.current_stream(A.device).wait_stream(side)
+            if D.is_cuda:
+                torch.cuda.synchronize(D.device)
     sched["requested_lookahead"] = bool(opts.lookahead)
     sched["streams"] = 2 if side is not None else 1
     stats["schedule"] = sched

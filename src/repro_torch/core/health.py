@@ -20,10 +20,8 @@ never as silent NaN factors. ``CholOptions(check=True)`` turns it on; off
   in ``fact.stats["health"]``; exhausted retries raise
   :class:`FactorizationBreakdown` carrying a :class:`BreakdownReport`
   (column, stage, pivot index, every remedy attempted) instead of returning
-  non-finite factors.
-
-The JAX package also mirrors the counters into its telemetry layer, which
-the port does not have yet.
+  non-finite factors; when telemetry records, each event also lands as a
+  cumulative ``obs.counter("health", ...)`` sample.
 """
 
 from __future__ import annotations
@@ -33,6 +31,8 @@ from typing import List, NoReturn, Optional
 
 import numpy as np
 import torch
+
+from .. import obs
 
 __all__ = [
     "RetryPolicy", "HealthEvent", "BreakdownReport",
@@ -156,7 +156,8 @@ class HealthMonitor:
     """Per-factorization event log + report builder.
 
     The drivers own the decisions (they hold the pipelines); the monitor
-    records what happened, keeps cumulative counters and builds the
+    records what happened, keeps cumulative counters (mirrored into
+    ``obs.counter("health", ...)`` when telemetry records) and builds the
     :class:`BreakdownReport` when a driver gives up.
     """
 
@@ -174,6 +175,11 @@ class HealthMonitor:
                          remedy=remedy, attempt=attempt, detail=detail)
         self.events.append(ev)
         self.counters[kind] = self.counters.get(kind, 0) + 1
+        if obs.enabled():
+            # Cumulative samples: the last sample of the series is the
+            # factorization's total (metrics_snapshot "counters" contract).
+            obs.counter("health",
+                        {k: float(v) for k, v in self.counters.items()})
         return ev
 
     def fail(self, column: int, stage: str, reason: str, *,

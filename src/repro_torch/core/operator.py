@@ -25,7 +25,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, torch_dtype
 from . import solve as _solve
 from .ara import ARAParams, ara_compress_dense, torch_probes
 from .tlr import TLRMatrix, tril_pairs
@@ -116,6 +116,7 @@ class TLROperator:
         *,
         rel: bool = False,
         method: str = "svd",
+        store_dtype=None,
         bs: int = 16,
         seed: int = 0,
         probes: Optional[Callable] = None,
@@ -130,6 +131,16 @@ class TLROperator:
         (``probes(k, it, shape, dtype, device)``, called with k = 0) feeds
         the ARA probes; by default they come from :func:`torch_probes` of
         ``seed``.
+
+        ``store_dtype``: optional lower precision (a torch or numpy dtype)
+        for the off-diagonal U/V factors (the paper's section 7
+        mixed-precision proposal), applied after the compression; the
+        diagonal tiles stay in the working precision. Every read of such
+        an operator promotes U and V to the working precision where they
+        meet working-precision operands (matvec, the factorizations'
+        gathers), so the kernels run in the working precision; rounding
+        (``op.round``) runs and stores in the storage precision, as in the
+        JAX package.
         """
         if isinstance(dense, torch.Tensor) and device is None:
             A = dense
@@ -160,6 +171,9 @@ class TLROperator:
             V = B  # tile ~= Q B^T  =>  U=Q, V=B
         else:
             raise ValueError(f"method must be 'svd' or 'ara', got {method!r}")
+        if store_dtype is not None:
+            sdt = torch_dtype(store_dtype)
+            U, V = U.to(sdt), V.to(sdt)
         return cls(TLRMatrix(D=D, U=U, V=V, ranks=ranks))
 
     @classmethod

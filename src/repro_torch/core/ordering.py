@@ -4,7 +4,8 @@ Own copy of ``repro/core/ordering.py`` (numpy only; the port imports
 nothing of ``repro``). The KD-tree splits each cluster along the largest
 dimension of its bounding box so the left child holds the power-of-two
 multiple of the tile size nearest to half the cluster; the leaves then map
-1:1 onto tiles.
+1:1 onto tiles. The Morton (Z-curve) ordering is the alternative the
+paper's related work refers to.
 """
 
 from __future__ import annotations
@@ -39,3 +40,18 @@ def kd_tree_ordering(points: np.ndarray, tile_size: int) -> np.ndarray:
 
     split(np.arange(n))
     return np.concatenate(out)
+
+
+def morton_ordering(points: np.ndarray, bits: int = 16) -> np.ndarray:
+    """Z-order (Morton) curve permutation for d<=3 point clouds."""
+    points = np.asarray(points)
+    n, d = points.shape
+    lo, hi = points.min(axis=0), points.max(axis=0)
+    scale = np.where(hi > lo, hi - lo, 1.0)
+    q = ((points - lo) / scale * (2**bits - 1)).astype(np.uint64)
+    codes = np.zeros(n, np.uint64)
+    for bit in range(bits):
+        for dim in range(d):
+            codes |= ((q[:, dim] >> np.uint64(bit)) & np.uint64(1)) \
+                << np.uint64(bit * d + dim)
+    return np.argsort(codes, kind="stable")

@@ -28,6 +28,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import numpy_dtype, resolve_device
 from .batching import plan_memo, resolve_batching, tile_plan
 from .buckets import _bucket_ladder, _bucket_up, trace_event
@@ -41,7 +42,11 @@ def _pair_index(nb: int, device: torch.device):
 
 
 def _chain(U, V, x):
-    """``U (V^T x)`` per tile; x is (t, b) or (t, b, m)."""
+    """``U (V^T x)`` per tile; x is (t, b) or (t, b, m). Factors stored
+    in a lower precision (``compress(store_dtype=)``) are promoted to the
+    product's precision first (no copy when they already have it)."""
+    dt = torch.promote_types(U.dtype, x.dtype)
+    U, V = U.to(dt), V.to(dt)
     if x.dim() == 2:
         return (U @ (V.transpose(1, 2) @ x[..., None]))[..., 0]
     return U @ (V.transpose(1, 2) @ x)
@@ -133,14 +138,33 @@ def tlr_matvec(A: TLRMatrix, x: torch.Tensor, *,
         plan = tile_plan(A.ranks, A.r_max)
         for bk, (idx, rows, cols, valid) in zip(
                 plan.buckets, _plan_gathers(plan, nb, xb.device)):
-            _plan_chain_sym(A.U, A.V, xb, yb, idx, rows, cols, valid,
-                            bk.width)
+            attrs = {}
+            if obs.enabled():
+                # Symmetric chain: both orientations per tile, 2 GEMMs each.
+                attrs = _chain_span_attrs(plan, bk, b, xb, sym=True)
+            with obs.span("matvec.bucket", cat="solve", **attrs):
+                _plan_chain_sym(A.U, A.V, xb, yb, idx, rows, cols, valid,
+                                bk.width)
     else:
         rows, cols = _pair_index(nb, xb.device)
         # lower tiles: y_i += U (V^T x_j);   mirrored upper: y_j += V (U^T x_i)
         yb.index_add_(0, rows, _chain(A.U, A.V, xb[cols]))
         yb.index_add_(0, cols, _chain(A.V, A.U, xb[rows]))
     return yb.reshape(x.shape)
+
+
+def _chain_span_attrs(plan, bk, b: int, xb, sym: bool) -> dict:
+    """Telemetry attributes for one bucket of a two-product read chain
+    (enabled mode only): ``2 * 2*b*w*m`` FLOPs per dispatched tile-product
+    slot (V^T x then U y, ``m`` rhs columns; doubled again for the
+    symmetric chain's mirrored product), useful scaled by true rank mass."""
+    m = 1
+    for d in xb.shape[2:]:
+        m *= int(d)
+    per_col = (8 if sym else 4) * b * m
+    return {"width": bk.width, "count": bk.count, "padded": bk.padded,
+            "flops": float(per_col) * float(plan.ranks_host[bk.idx].sum()),
+            "flops_padded": float(per_col) * float(bk.padded * bk.width)}
 
 
 # -- lower-triangular TLR products / solves -------------------------------------
@@ -160,13 +184,17 @@ def tlr_tri_matvec(L: TLRMatrix, x: torch.Tensor, *, trans: bool = False,
         plan = tile_plan(L.ranks, L.r_max)
         for bk, (idx, rows, cols, valid) in zip(
                 plan.buckets, _plan_gathers(plan, nb, xb.device)):
-            if not trans:
-                _plan_chain(L.U, L.V, xb, yb, idx, cols, rows, valid,
-                            bk.width)
-            else:
-                # (L^T)(j,i) = L(i,j)^T = V U^T: swap the factor roles.
-                _plan_chain(L.V, L.U, xb, yb, idx, rows, cols, valid,
-                            bk.width)
+            attrs = {}
+            if obs.enabled():
+                attrs = _chain_span_attrs(plan, bk, b, xb, sym=False)
+            with obs.span("tri_matvec.bucket", cat="solve", **attrs):
+                if not trans:
+                    _plan_chain(L.U, L.V, xb, yb, idx, cols, rows, valid,
+                                bk.width)
+                else:
+                    # (L^T)(j,i) = L(i,j)^T = V U^T: swap the factor roles.
+                    _plan_chain(L.V, L.U, xb, yb, idx, rows, cols, valid,
+                                bk.width)
         return yb.reshape(x.shape)
     rows, cols = _pair_index(nb, xb.device)
     if not trans:
@@ -268,12 +296,21 @@ def tlr_trsv(L: TLRMatrix, y: torch.Tensor, *, trans: bool = False,
             L.D[0].T if trans else L.D[0], xb[0], upper=trans)
         return xb.reshape(y.shape)
     bucket_w = None
-    if resolve_batching(batching, L.ranks, L.r_max) == "ranked":
+    mode = resolve_batching(batching, L.ranks, L.r_max)
+    if mode == "ranked":
         bucket_w = _trsv_bucket_widths(tile_plan(L.ranks, L.r_max), nb,
                                        trans, _bucket_ladder(nb - 1))
-    for Tb, k, tidx, ridx, valid in _trsv_column_steps(nb, trans, xb.device):
-        w = bucket_w[Tb] if bucket_w is not None else L.r_max
-        _trsm_step(L, xb, k, Tb, tidx, ridx, valid, trans, w)
+    sweep_attrs = {"nb": nb, "trans": trans, "mode": mode} \
+        if obs.enabled() else {}
+    with obs.span("trsm.sweep", cat="solve", **sweep_attrs):
+        for Tb, k, tidx, ridx, valid in _trsv_column_steps(nb, trans,
+                                                           xb.device):
+            w = bucket_w[Tb] if bucket_w is not None else L.r_max
+            # Column steps run asynchronously on the card, so each child
+            # span times the launch, not the device work; the profiler
+            # range of the sweep carries the device alignment.
+            with obs.span("trsm.column", cat="solve", Tb=Tb, w=w):
+                _trsm_step(L, xb, k, Tb, tidx, ridx, valid, trans, w)
     return xb.reshape(y.shape)
 
 

@@ -114,10 +114,23 @@ def tlr_to_dense(D, U, V, nb: int, b: int) -> torch.Tensor:
     out[ar, :, ar, :] = D
     if nb > 1:
         pairs = torch.as_tensor(tril_pairs(nb), device=D.device)
-        blocks = U @ V.transpose(1, 2)                       # (nt, b, b)
+        # (nt, b, b), in D's precision when U / V are stored lower
+        blocks = (U @ V.transpose(1, 2)).to(D.dtype)
         out[pairs[:, 0], :, pairs[:, 1], :] = blocks
         out[pairs[:, 1], :, pairs[:, 0], :] = blocks.transpose(1, 2)
     return out.reshape(n, n)
+
+
+def rank_heatmap(A: TLRMatrix) -> np.ndarray:
+    """(nb, nb) array of tile ranks (diag = b, upper mirrored) for plots."""
+    nb, b = A.nb, A.b
+    H = np.full((nb, nb), b, np.int32)
+    if nb > 1:
+        pairs = tril_pairs(nb)
+        ranks = A.ranks.cpu().numpy()
+        H[pairs[:, 0], pairs[:, 1]] = ranks
+        H[pairs[:, 1], pairs[:, 0]] = ranks
+    return H
 
 
 def zeros_like_structure(nb: int, b: int, r_max: int, dtype,

@@ -32,6 +32,12 @@ One tick:
 Packing is host-side numpy around one copy to the factor's device per
 block and one ``.cpu()`` read per op per tick. The server runs on the
 factor's device: the card, unless the factor was built on the CPU.
+
+When telemetry records (``repro_torch.obs``), a tick is a ``serve.tick``
+span (``active`` / ``pending`` set on it) over ``serve.pack`` (the refill,
+and each block's host packing), ``serve.dispatch`` (the copy to the device
+and the op), ``serve.sync`` (the read back) and ``serve.evict`` spans per
+kind, with one ``occupancy`` counter sample.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import faults
+from .. import faults, obs
 from ..core import solve as _solve
 from ..device import numpy_dtype
 from .queue import RequestQueue
@@ -387,44 +393,51 @@ class TLRServer:
             else:
                 done.append(self._complete(i, x))
 
-    def _run_block(self, res: _Resident, idx: List[int], cols, op,
-                   done: List[ServeResult]) -> None:
+    def _run_block(self, res: _Resident, kind: str, idx: List[int], cols,
+                   op, done: List[ServeResult]) -> None:
         """Pack ``cols`` (one host column per slot of ``idx``) into an
         ``(n, slots)`` block, run ``op`` on it on the factor's device,
         read the result back once and evict the block."""
-        B = np.zeros((res.fact.n, self.slots), res.np_dtype)
-        for i, col in zip(idx, cols):
-            B[:, i] = col
-        X = op(torch.as_tensor(B).to(res.fact.device)).cpu().numpy()
-        self._evict_block(idx, X, done)
+        with obs.span("serve.pack", cat="serve", kind=kind, count=len(idx)):
+            B = np.zeros((res.fact.n, self.slots), res.np_dtype)
+            for i, col in zip(idx, cols):
+                B[:, i] = col
+        with obs.span("serve.dispatch", cat="serve", kind=kind):
+            Xd = op(torch.as_tensor(B).to(res.fact.device))
+        with obs.span("serve.sync", cat="serve", kind=kind):
+            X = Xd.cpu().numpy()
+        with obs.span("serve.evict", cat="serve", kind=kind):
+            self._evict_block(idx, X, done)
 
     def _advance_pcg(self, res: _Resident, done: List[ServeResult]) -> None:
         """One PCG window of the resident's engine, then evict its done
         columns (``done_columns`` rather than advance's return: a
         zero-rhs load finishes without ever activating)."""
-        res.engine.advance(self.check_every)
-        for i in res.engine.done_columns:
-            x, iters, hist, conv = res.engine.evict(i)
-            slot = self._slots[i]
-            if hist.breakdown is not None and not conv \
-                    and slot.attempts <= slot.req.retries:
-                # Bounded retry with exponential backoff: free the slot
-                # without completing; the request re-admits from the
-                # holding pen once 2^(attempts-1) ticks elapse.
-                attempts = slot.attempts
-                self.stats.pcg_retries += 1
-                self._backoff.append(
-                    (slot.req, self._tick + 2 ** (attempts - 1),
-                     attempts + 1))
-                self._slots[i] = None
-                continue
-            broke = hist.breakdown is not None and not conv
-            if broke:
-                self.stats.errors += 1
-            done.append(self._complete(
-                i, x, iterations=iters, converged=conv,
-                breakdown=hist.breakdown, history=hist, ok=not broke,
-                error="pcg_breakdown" if broke else None))
+        with obs.span("serve.dispatch", cat="serve", kind="pcg_solve"):
+            res.engine.advance(self.check_every)
+        with obs.span("serve.evict", cat="serve", kind="pcg_solve"):
+            for i in res.engine.done_columns:
+                x, iters, hist, conv = res.engine.evict(i)
+                slot = self._slots[i]
+                if hist.breakdown is not None and not conv \
+                        and slot.attempts <= slot.req.retries:
+                    # Bounded retry with exponential backoff: free the slot
+                    # without completing; the request re-admits from the
+                    # holding pen once 2^(attempts-1) ticks elapse.
+                    attempts = slot.attempts
+                    self.stats.pcg_retries += 1
+                    self._backoff.append(
+                        (slot.req, self._tick + 2 ** (attempts - 1),
+                         attempts + 1))
+                    self._slots[i] = None
+                    continue
+                broke = hist.breakdown is not None and not conv
+                if broke:
+                    self.stats.errors += 1
+                done.append(self._complete(
+                    i, x, iterations=iters, converged=conv,
+                    breakdown=hist.breakdown, history=hist, ok=not broke,
+                    error="pcg_breakdown" if broke else None))
 
     def _refill(self) -> None:
         """Fill free slots: breakdown retries whose backoff elapsed first
@@ -459,28 +472,38 @@ class TLRServer:
         if not self._warm:
             self.warmup()
         t0 = time.perf_counter()
-        done: List[ServeResult] = []
-        self._deadline_scan(done)
-        self._refill()
-        self.stats.record_tick(self.active, 0.0)  # seconds patched below
-        for fid, res in self._residents.items():
-            by_kind: Dict[str, List[int]] = {}
-            for i, slot in enumerate(self._slots):
-                if slot is not None and slot.req.fid == fid:
-                    by_kind.setdefault(slot.req.kind, []).append(i)
-            for i in by_kind.get("logdet", ()):
-                done.append(self._complete(i, res.logdet))
-            if "solve" in by_kind:
-                idx = by_kind["solve"]
-                self._run_block(res, idx,
-                                [self._slots[i].req.rhs for i in idx],
-                                res.fact.solve, done)
-            if "sample" in by_kind:
-                idx = by_kind["sample"]
-                self._run_block(res, idx, [self._slots[i].z for i in idx],
-                                lambda Z: self._sample_block(res, Z), done)
-            if "pcg_solve" in by_kind:
-                self._advance_pcg(res, done)
+        with obs.span("serve.tick", cat="serve", tick=self._tick) as tsp:
+            done: List[ServeResult] = []
+            self._deadline_scan(done)
+            with obs.span("serve.pack", cat="serve", stage="refill"):
+                self._refill()
+            self.stats.record_tick(self.active, 0.0)  # seconds patched below
+            if obs.enabled():
+                tsp.set(active=self.active, pending=self.pending)
+                obs.counter("occupancy", {"active": self.active,
+                                          "slots": self.slots})
+            for fid, res in self._residents.items():
+                by_kind: Dict[str, List[int]] = {}
+                for i, slot in enumerate(self._slots):
+                    if slot is not None and slot.req.fid == fid:
+                        by_kind.setdefault(slot.req.kind, []).append(i)
+                if "logdet" in by_kind:
+                    with obs.span("serve.evict", cat="serve", kind="logdet"):
+                        for i in by_kind["logdet"]:
+                            done.append(self._complete(i, res.logdet))
+                if "solve" in by_kind:
+                    idx = by_kind["solve"]
+                    self._run_block(res, "solve", idx,
+                                    [self._slots[i].req.rhs for i in idx],
+                                    res.fact.solve, done)
+                if "sample" in by_kind:
+                    idx = by_kind["sample"]
+                    self._run_block(res, "sample", idx,
+                                    [self._slots[i].z for i in idx],
+                                    lambda Z: self._sample_block(res, Z),
+                                    done)
+                if "pcg_solve" in by_kind:
+                    self._advance_pcg(res, done)
         self.stats.tick_seconds[-1] = time.perf_counter() - t0
         self._tick += 1
         return done

@@ -71,7 +71,8 @@ class ServerStats:
 
     def summary(self) -> dict:
         """The machine-readable record: occupancy, throughput, per-kind and
-        overall p50/p99, and the health counters."""
+        overall p50/p99, the health counters and, while telemetry records,
+        the ``serve`` spans' metrics snapshot."""
         wall = float(np.sum(self.tick_seconds))
         out = {
             "slots": self.slots,
@@ -91,4 +92,11 @@ class ServerStats:
         }
         for kind in sorted(self.latencies):
             out[f"latency_{kind}"] = self.latency_percentiles(kind)
+        from .. import obs
+
+        if obs.enabled():
+            # The server's slice of the active telemetry recording:
+            # per-tick-stage seconds (pack/dispatch/sync/evict) next to the
+            # occupancy/latency record they explain.
+            out["telemetry"] = obs.metrics_snapshot(cats=("serve",))
         return out

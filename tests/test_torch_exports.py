@@ -12,7 +12,6 @@ ROOT = Path(__file__).resolve().parents[1]
 # Names the port does not have yet, with the ROADMAP Queue 1 item that
 # brings each.
 TO_PORT = {
-    "morton_ordering": 1, "rank_heatmap": 1,
     "set_tile_mesh": 8, "tile_mesh": 8, "tile_dp_size": 8,
     "pad_tile_batch": 8, "shard_tile_batch": 8,
 }
