@@ -14,8 +14,7 @@ before it and read just after:
    operator factored with the other ``batching`` value under the same
    gate, so that flat and rank-bucketed batching both run (each logs its
    ranks, the gather widths wA / wL and projection widths wQ of the ranked
-   run, and its launches per shape); it also times the batched SVD of one
-   tile column by each cuSOLVER driver;
+   run, and its launches per shape);
 2. the rounding pass on the same operator: ``op.round(1e-6)`` flat and
    ranked (batched QR of the factors, SVD of the cores; per rank bucket
    when ranked), each gated on no rank rising and the rounded matvec
@@ -28,7 +27,7 @@ before it and read just after:
    with their mean live rank and, timed apart, launches x kernel ms
    against the bound per shape;
 4. the fractional-diffusion PCG path (paper section 6.2): the 3-D
-   operator at N = 32768, tile 512 built on the card, compressed at 1e-10,
+   operator at N = 16384, tile 512 built on the card, compressed at 1e-10,
    ``tlr_add_diag(op.A, eps)`` factored by the left-looking Cholesky at
    eps = 1e-2 and 1e-4, each used by ``pcg`` as the preconditioner of the
    compressed operator, then unpreconditioned ``pcg``; gated on the final
@@ -94,7 +93,15 @@ before it and read just after:
     ``TLROperator.compress(..., store_dtype=torch.float32)``, gated on half
     the logical low-rank bytes, the matvec within 1e-4 of ``K x`` and the
     default left Cholesky at eps 1e-5 (residual 100 eps, solve error
-    1e-2), its kernels running in f64 on the promoted factors.
+    1e-2), its kernels running in f64 on the promoted factors;
+12. the right driver on a tile mesh of two ranks on path 3's operator
+    (``core.set_tile_mesh``; each rank holds half the accumulators, the
+    panels gather their column across the ranks): NCCL with one rank per
+    card, or gloo with both ranks on one card; the flat and ranked
+    Cholesky and the ranked one with lookahead, each gated on every rank
+    equal to rank 0 bit for bit, rank 0 within 1e-12 of the single-device
+    factor, the residual gate, a finite solve and half the accumulator
+    bytes a rank, logging each rank's seconds, peak memory and launches.
 
 Then it holds each kernel against its plain PyTorch version on the card
 (f64, f32 and bf16; f64 and f32 for the QR and SVD) at the paths' shapes
@@ -154,12 +161,13 @@ TILE, R_MAX, EPS = 512, 128, 1e-6
 # path's 2016 tiles), r_max 128, same eps.
 N_RIGHT, TILE_RIGHT = 8192, 128
 # The fractional-diffusion PCG path (paper section 6.2, Figs. 9/10): the 3-D
-# operator of ``fractional_diffusion_problem`` on the full 32^3 grid (the
-# largest power-of-two cube whose dense f64 K, 8.6 GB, sits on the card
-# beside the compression's workspace; the paper's N = 2^17 needs 137 GB),
+# operator of ``fractional_diffusion_problem`` at N = 16384 (the full 32^3
+# grid, N = 32768, whose compression took 218 s, was halved to make room in
+# the smoke's time limit; the paper's N = 2^17 needs a 137 GB dense K),
 # s = 0.75, tile 512, compressed at 1e-10 with r_max = tile; PCG to 1e-6
 # preconditioned by the TLR Cholesky of K + eps I at each eps of FRAC_EPS.
-FRAC_N, FRAC_TILE, FRAC_S, FRAC_EPS = 32768, 512, 0.75, (1e-2, 1e-4)
+FRAC_N, FRAC_TILE, FRAC_S, FRAC_EPS = 16384, 512, 0.75, (1e-2, 1e-4)
+FRAC_CELL = f"frac3d-{FRAC_N // 1024}k"
 # The Newton-Schulz path: the same generator at N = 8192, tile 128 (nb = 64;
 # at tile 512 every tlr_gemm output tile is a dense 512^2 SVD), compressed
 # at 1e-10; the inverse at eps 1e-8 with norm scaling after each iteration
@@ -989,30 +997,6 @@ def timed(fn, profile: str | None, name: str):
     return out, sec
 
 
-def svd_drivers(K, tile: int) -> None:
-    """Seconds of one batched ``torch.linalg.svd`` of the first tile
-    column's nb - 1 tiles by each cuSOLVER driver, with the ranks each
-    gives at the compression's 1e-8 against gesvd's and the worst relative
-    reconstruction error. (gesvda fails to converge on these tiles.)"""
-    import torch
-    nb = K.shape[0] // tile
-    tiles = K[tile:, :tile].reshape(nb - 1, tile, tile)
-    ref = None
-    for driver in ("gesvd", None, "gesvdj"):
-        (U, s, Vh), sec = sync_time(lambda: torch.linalg.svd(
-            tiles, full_matrices=False, driver=driver))
-        ranks = (s > 1e-8).sum(dim=1)
-        ref = ranks if ref is None else ref
-        rec = torch.linalg.matrix_norm((U * s[:, None, :]) @ Vh - tiles)
-        rel = float((rec / torch.linalg.matrix_norm(tiles)).max())
-        log(f"svd driver {driver or 'default'}: {nb - 1} tiles of {tile}^2 "
-            f"in {sec:.3f} s; ranks at 1e-8 differ from gesvd's in "
-            f"{int((ranks != ref).sum())} tiles (max |diff| "
-            f"{int((ranks - ref).abs().max())}); max rel reconstruction "
-            f"error {rel:.2e}")
-        del U, s, Vh
-
-
 def path_shapes() -> dict:
     """Launches per shape of each kernel since the last reset."""
     from repro_torch.kernels import ops
@@ -1195,7 +1179,6 @@ def main_path(n: int, profile: str | None) -> dict:
         f"{int(ranks_a.max())} mean {float(ranks_a.float().mean()):.2f}")
     del op, fact
     torch.cuda.empty_cache()
-    svd_drivers(K, tile)
     Ld, t_dense = sync_time(lambda: torch.linalg.cholesky(K))
     ld_dense = float(2 * torch.log(torch.diagonal(Ld)).sum())
     log(f"logdet: TLR {float(ld):.6f}, dense cholesky {ld_dense:.6f} "
@@ -1503,6 +1486,7 @@ def right_phase(n: int, profile: str | None) -> dict:
     out.update(telemetry_right_phase(op))
     out.update(fault_phase(op, out["right_cholesky_max_rank"]))
     out.update(mixed_phase(op, K, Z))
+    out.update(mesh_phase(op, Z, KZ, y))
     del op, K, KZ, Z
     torch.cuda.empty_cache()
     for kind, batching, flush in runs:
@@ -2023,9 +2007,9 @@ def serve_main_phase(op, fact, K) -> dict:
 
 
 def serve_frac_phase(op, K, eps: float) -> dict:
-    """The server on frac3d-32k-pcg's compressed operator with the loose
+    """The server on the frac pcg path's compressed operator with the loose
     Cholesky of ``tlr_add_diag(op.A, eps)`` as preconditioner, factored
-    here again (as frac3d-32k-pcg factors it, after its launch counts were
+    here again (as that path factors it, after its launch counts were
     read, so that no earlier phase holds two factors at once;
     benchmarks/bench_tlr.py::bench_serve's shape at the paper's section
     6.2 size): FRAC_SERVE_REQUESTS pcg_solve requests (tol 1e-6, maxiter
@@ -2044,14 +2028,14 @@ def serve_frac_phase(op, K, eps: float) -> dict:
     torch.cuda.reset_peak_memory_stats()
     fact, t_fact = sync_time(lambda: TLROperator(
         tlr_add_diag(op.A, eps)).cholesky(CholOptions(eps=eps, bs=16)))
-    log(f"serve frac3d-32k: resident Cholesky at eps={eps:g} in "
+    log(f"serve {FRAC_CELL}: resident Cholesky at eps={eps:g} in "
         f"{t_fact:.3f} s")
     srv, t_warm = sync_time(lambda: fact.serve(
         operator=op, slots=SERVE_SLOTS, check_every=SERVE_CHECK))
     rng = np.random.default_rng(1)
     reqs = [ServeRequest("pcg_solve", rhs=rng.standard_normal(n), tol=1e-6,
                          maxiter=300) for _ in range(FRAC_SERVE_REQUESTS)]
-    out = drive_server("serve frac3d-32k", srv, reqs, t_warm)
+    out = drive_server(f"serve {FRAC_CELL}", srv, reqs, t_warm)
     results = out["results"]
     worst = 0.0
     for r in reqs:
@@ -2072,7 +2056,7 @@ def serve_frac_phase(op, K, eps: float) -> dict:
                                                    xs.cpu().numpy())))
     iters = [results[r.rid].iterations for r in reqs]
     occ = out["stats"]["occupancy"]
-    log(f"serve frac3d-32k: pcg_solve iterations {iters}, max "
+    log(f"serve {FRAC_CELL}: pcg_solve iterations {iters}, max "
         f"||Kx - b||/||b|| {worst:.3e} (gate 1e-5), occupancy {occ:.4f} "
         f"(gate 0.8); first two against scalar pcg (iterations scalar / "
         f"batched, scalar seconds, bit for bit, rel diff): " + "; ".join(
@@ -2585,6 +2569,181 @@ def mixed_phase(op, K, Z) -> dict:
     return {"mixed": launches}
 
 
+# -- phase 17: the right driver on a mesh of ranks (tile sharding) -------------
+
+# The ranks of the mesh phase and its right Cholesky runs, (batching,
+# lookahead).
+MESH_RANKS = 2
+MESH_RUNS = (("flat", False), ("ranked", False), ("ranked", True))
+
+
+def mesh_key(batching: str, lookahead: bool) -> str:
+    return f"mesh_{batching}" + ("_lookahead" if lookahead else "")
+
+
+def mesh_rank(rank: int, world: int, backend: str, work: str) -> None:
+    """One rank of ``mesh_phase``, started by torch.multiprocessing.spawn:
+    the operator the parent saved in ``work``, then the right Cholesky of
+    each of MESH_RUNS with the tile mesh installed, a (world, 1) ``("data",
+    "model")`` mesh, so that each rank holds half the accumulators. Rank 0
+    saves its factors; every rank compares its factor with rank 0's
+    (broadcast) and writes its seconds, peak memory, launch counts and
+    accumulator bytes to ``work/rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import CholOptions, TLRMatrix, TLROperator
+    from repro_torch.core import set_tile_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+
+    work = Path(work)
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{work / 'store'}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_test_mesh((world, 1), ("data", "model"))
+        op = TLROperator(TLRMatrix(**torch.load(work / "op.pt",
+                                                map_location=dev)))
+        set_tile_mesh(mesh)
+        out = {"device": str(dev)}
+        for batching, lookahead in MESH_RUNS:
+            key = mesh_key(batching, lookahead)
+            opts = CholOptions(eps=EPS, algo="right", batching=batching,
+                               lookahead=lookahead)
+            dist.barrier()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launch_counts()
+            fact, sec = sync_time(lambda: op.cholesky(opts))
+            launches = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated(dev)
+            L = fact.L
+            parts = {"D": L.D, "U": L.U, "V": L.V, "ranks": L.ranks}
+            if rank == 0:
+                torch.save(parts, work / f"{key}.pt")
+            same, rel = True, 0.0
+            for name, x in parts.items():
+                y = x.clone()
+                dist.broadcast(y, src=0)
+                same = same and torch.equal(x, y)
+                if name != "ranks":
+                    rel = max(rel, float((x - y).abs().max()
+                                         / y.abs().max()))
+            st = fact.stats
+            out[key] = {"seconds": sec, "peak": peak, "launches": launches,
+                        "acc_bytes": st["acc_bytes"],
+                        "tile_rows": st["tile_rows"],
+                        "acc_width": st["acc_width"],
+                        "flushes": st["flushes"],
+                        "schedule": st["schedule"]["name"],
+                        "rank0_rel": rel, "rank0_bitwise": same}
+            del fact, L, parts
+        set_tile_mesh(None)
+        (work / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(op, Z, KZ, y) -> dict:
+    """The right driver with its accumulators split over MESH_RANKS ranks
+    (``core.set_tile_mesh`` on a ``torch.distributed`` device mesh), on the
+    cov2d-8k-right operator, which it saves under build/ for the ranks:
+    NCCL with one rank per card when the machine has MESH_RANKS cards, else
+    gloo with every rank on cuda:0 (NCCL takes one rank per card). The
+    flat and ranked Cholesky, and the ranked one with lookahead
+    (``mesh_rank``). Gates, per run: both ranks ran and launched the QR,
+    SVD and GEMM kernels, each rank's factor equals rank 0's bit for bit
+    and rank 0's is within 1e-12 of this process's single-device factor of
+    the same options (max abs over L.D, L.U and L.V relative to its max;
+    the bitwise status logged), the right phase's residual gate and a
+    finite solve on rank 0's factor, and each rank's accumulator bytes
+    exactly half the single device's. Logs the seconds of each run on each
+    rank (the first runs of fresh processes, two sharing one card under
+    gloo: a check of correctness, not of scaling), peak memory and launch
+    counts per rank."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch import CholOptions, TLRFactorization, TLRMatrix
+
+    t_phase = time.perf_counter()
+    backend = "nccl" if torch.cuda.device_count() >= MESH_RANKS else "gloo"
+    where = ("one rank per card" if backend == "nccl"
+             else f"all {MESH_RANKS} ranks on cuda:0")
+    work = ROOT / "build" / "mesh_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    A = op.A
+    torch.save({"D": A.D, "U": A.U, "V": A.V, "ranks": A.ranks},
+               work / "op.pt")
+    refs = {}
+    for batching, lookahead in MESH_RUNS:
+        opts = CholOptions(eps=EPS, algo="right", batching=batching,
+                           lookahead=lookahead)
+        refs[mesh_key(batching, lookahead)] = sync_time(
+            lambda: op.cholesky(opts))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.spawn(mesh_rank, args=(MESH_RANKS, backend, str(work)),
+             nprocs=MESH_RANKS, join=True)
+    t_ranks = time.perf_counter() - t0
+    res = [json.loads((work / f"rank{r}.json").read_text())
+           for r in range(MESH_RANKS)]
+    log(f"mesh: {MESH_RANKS} ranks on a ({MESH_RANKS}, 1) (data, model) "
+        f"mesh, backend {backend} ({where}), cov2d-8k-right; the ranks' "
+        f"processes took {t_ranks:.1f} s from spawn to join")
+    out = {}
+    for batching, lookahead in MESH_RUNS:
+        key = mesh_key(batching, lookahead)
+        ref, t_ref = refs[key]
+        fact = TLRFactorization(
+            L=TLRMatrix(**torch.load(work / f"{key}.pt",
+                                     map_location="cuda")),
+            d=None, perm=np.arange(ref.nb), stats={})
+        rel, same = factor_diff(fact, ref)
+        resid = right_residual(fact, Z, KZ)
+        x = fact.solve(y)
+        runs = [r[key] for r in res]
+        half = ref.stats["acc_bytes"] // MESH_RANKS
+        log(f"{key}: seconds per rank "
+            f"{[round(r['seconds'], 3) for r in runs]} (one device "
+            f"{t_ref:.3f} s); against one device max rel diff {rel:.3e} "
+            f"(gate 1e-12), bitwise {'yes' if same else 'no'}; ranks equal "
+            f"bitwise {all(r['rank0_bitwise'] for r in runs)} (max rel "
+            f"{max(r['rank0_rel'] for r in runs):.3e}); accumulator bytes "
+            f"per rank {[r['acc_bytes'] for r in runs]} (one device "
+            f"{ref.stats['acc_bytes']}), tile rows "
+            f"{[r['tile_rows'] for r in runs]}; peak memory per rank "
+            f"{[round(r['peak'] / 2**30, 2) for r in runs]} GiB; flushes "
+            f"{runs[0]['flushes']} (one device {ref.stats['flushes']}), "
+            f"schedule {runs[0]['schedule']}; residual {resid:.3e} (gate "
+            f"{100 * EPS:.0e}); launches per rank "
+            f"{json.dumps([r['launches'] for r in runs])}")
+        for r, run in enumerate(runs):
+            for name in ROUND_KERNELS:
+                assert run["launches"][name] > 0, \
+                    f"{key}: rank {r} did not launch {name}"
+            assert run["rank0_bitwise"], f"{key}: rank {r} differs from 0"
+            assert run["acc_bytes"] == half, \
+                f"{key}: rank {r} holds {run['acc_bytes']} accumulator " \
+                f"bytes, not half of {ref.stats['acc_bytes']}"
+        assert rel <= 1e-12, f"{key}: differs from one device by {rel:.3e}"
+        assert resid <= 100 * EPS, f"{key}: residual above 100 eps"
+        assert bool(torch.isfinite(x).all()), f"{key}: solve not finite"
+        out[key] = runs[0]["launches"]
+        out[f"{key}_seconds"] = [r["seconds"] for r in runs]
+        del fact, ref, x
+    shutil.rmtree(work)
+    log(f"mesh: phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=32768)
@@ -2666,7 +2825,8 @@ def main() -> int:
                **{key: right[key] for key in (
                    "telemetry_right_ranked",
                    "telemetry_right_ranked_lookahead",
-                   "telemetry_right_flat", "mixed")}}
+                   "telemetry_right_flat", "mixed",
+                   *(mesh_key(*run) for run in MESH_RUNS))}}
     log(f"main path batching: auto -> {main['batching']} (main_{other}: "
         f"the same operator factored with batching={other})")
     kernels = []

@@ -10,7 +10,9 @@ PCG with a loose factorization or a Newton-Schulz TLR inverse, one
 right-hand side or a block of them (``BatchedPCG``); and serve a resident
 factorization to a stream of solve / logdet / sample / pcg_solve
 requests through fixed ``(n, slots)`` blocks (``fact.serve()``,
-``repro_torch.serve``) -- on an NVIDIA Hopper card, with the five Pallas
+``repro_torch.serve``); split the right driver's accumulators over the
+data axes of a ``torch.distributed`` device mesh
+(``core.set_tile_mesh``) -- on an NVIDIA Hopper card, with the five Pallas
 TPU kernels of the JAX package replaced by hand-written CUDA kernels
 (``kernels/csrc``).
 

@@ -1,6 +1,7 @@
 """Core TLR layers of the port: layout, compression, rounding, tile
 algebra, factorization (with its stage graph, schedules and health
-checks), solves, PCG and the Newton-Schulz preconditioner."""
+checks), solves, PCG, the Newton-Schulz preconditioner and the tile-mesh
+sharding hooks."""
 
 from .algebra import (TLRTiles, generalize, offd_index, offd_pairs,
                       symmetrize, tlr_add_diag, tlr_axpy, tlr_gemm,
@@ -11,8 +12,9 @@ from .ara import (ARAParams, ara_compress_dense, run_ara_fused,
 from .batching import (BatchPlan, RankBucket, TilePlan,
                        batching_trace_count, bucket_width,
                        bucketed_round_tiles, choose_batching,
-                       plan_rank_buckets, rank_ladder, resolve_batching,
-                       resolve_policy, tile_plan)
+                       pad_tile_batch, plan_rank_buckets, rank_ladder,
+                       resolve_batching, resolve_policy, set_tile_mesh,
+                       shard_tile_batch, tile_dp_size, tile_mesh, tile_plan)
 from .buckets import trace_count, trace_counts, trace_counts_diff
 from .cholesky import (CholOptions, dense_ldlt_tile, robust_cholesky,
                        tlr_cholesky, tlr_ldlt)
@@ -50,10 +52,13 @@ __all__ = [
     "exp_covariance", "fractional_diffusion", "fractional_diffusion_matrix",
     "fractional_diffusion_points", "fractional_diffusion_problem",
     "generalize", "grid_points", "kd_tree_ordering", "matern32_covariance",
-    "morton_ordering", "num_tiles", "offd_index", "offd_pairs", "pcg",
-    "plan_rank_buckets", "rank_heatmap", "rank_ladder", "resolve_batching",
-    "resolve_policy", "robust_cholesky", "run_ara_fused", "run_graph", "spectral_norm_est", "spectral_norm_est_op",
-    "symmetrize", "tile_perm_to_element_perm", "tile_plan", "tlr_add_diag",
+    "morton_ordering", "num_tiles", "offd_index", "offd_pairs",
+    "pad_tile_batch", "pcg", "plan_rank_buckets", "rank_heatmap",
+    "rank_ladder", "resolve_batching", "resolve_policy", "robust_cholesky",
+    "run_ara_fused", "run_graph",
+    "set_tile_mesh", "shard_tile_batch", "spectral_norm_est",
+    "spectral_norm_est_op", "symmetrize", "tile_dp_size", "tile_mesh",
+    "tile_perm_to_element_perm", "tile_plan", "tlr_add_diag",
     "tlr_axpy", "tlr_cholesky", "tlr_gemm", "tlr_ldlt", "tlr_matvec",
     "tlr_newton_schulz", "tlr_round", "tlr_round_tiles", "tlr_scale",
     "tlr_syrk", "tlr_syrk_column", "tlr_to_dense", "tlr_transpose",

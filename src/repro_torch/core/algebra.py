@@ -54,7 +54,8 @@ import numpy as np
 import torch
 
 from .. import obs
-from .batching import bucket_width, bucketed_round_tiles, resolve_batching
+from .batching import (bucket_width, bucketed_round_tiles, resolve_batching,
+                       tile_batch_rows)
 from .buckets import _bucket_ladder, _bucket_up, to_device
 from .tlr import TLRMatrix, tril_index, tril_pairs
 from ..kernels import ops
@@ -621,6 +622,12 @@ def tlr_gemm(A, B, eps: float, r_max_out: int | None = None, *,
     # Factors stored in a lower precision are promoted to the working one.
     Ua, Va, Ub, Vb = (x.to(Ga.D.dtype).contiguous()
                       for x in (Ua, Va, Ub, Vb))
+    # Under a tile mesh every rank computes the whole product (each output
+    # tile reads a whole row and column of the operands), so of the JAX
+    # package's sharding of the generalized factors only the mesh's
+    # indivisibility mode applies: "error" raises, and "pad"'s zero tiles
+    # would never be read.
+    tile_batch_rows(Ua.shape[0])
     Dc, U, V, ranks = _gemm_core(
         Ga.D.contiguous(), Ua, Va, Ga.ranks, Gb.D.contiguous(), Ub, Vb,
         eps, nb=Ga.nb, r_out=r_out, rel=rel)
@@ -757,7 +764,7 @@ def _syrk_column_pairs(nb: int, k: int):
 def tlr_syrk_column(accU: torch.Tensor, accV: torch.Tensor, used,
                     D: torch.Tensor, Up: torch.Tensor, Vn: torch.Tensor,
                     ranks: torch.Tensor, dk, k: int, *,
-                    part: str = "all") -> None:
+                    part: str = "all", rows: range | None = None) -> None:
     """Column-scoped SYRK: apply factor column ``k``'s trailing Schur
     update ``A(i,j) -= L(i,k) D_k L(j,k)^T`` for all i >= j > k, in place.
 
@@ -792,6 +799,12 @@ def tlr_syrk_column(accU: torch.Tensor, accV: torch.Tensor, used,
     diagonal update is an ``index_add_`` into ``D``. All in place, on the
     current CUDA stream, with one host-to-device copy of the indices that
     does not block the host.
+
+    ``rows`` is the block of global tiles that ``accU`` / ``accV`` hold
+    (a tile mesh's local rows, from the right driver): only those tiles
+    get their appends, while ``D`` is updated whole on every rank. Without
+    it the buffers hold every tile, under the installed mesh's
+    indivisibility mode.
 
     The scalar branch stays because it is the faster of the two for a flat
     offset: over the 63 appends of the flat right driver at N = 8192, tile
@@ -831,6 +844,13 @@ def tlr_syrk_column(accU: torch.Tensor, accV: torch.Tensor, used,
             f"no room for a rank-{r_p} append at column {high} of the "
             f"width-{w_acc} accumulation buffers; round first "
             f"(tlr_round_tiles)")
+    if rows is None:
+        tile_batch_rows(accU.shape[0], preserve_shape=True)
+    else:
+        mine = (o >= rows.start) & (o < rows.stop)
+        o, a, c = o[mine] - rows.start, a[mine], c[mine]
+        if per_tile:
+            cols = cols.reshape(-1, r_p)[mine].reshape(-1)
     n, nd = len(o), len(dslots)
     if n + nd == 0:
         return

@@ -19,9 +19,10 @@ rank are exactly zero, so slicing a tile's factors to any width >= its rank
 is exact. Tiles of rank 0 are skipped outright: no QR, no SVD, no phantom
 rank 1.
 
-Not ported (ROADMAP Queue 1 item 8): the tile-mesh sharding hooks
-(``set_tile_mesh``, ``tile_dp_size``, ``pad_tile_batch``,
-``shard_tile_batch``).
+The tile-mesh hooks (``set_tile_mesh``, ``tile_mesh``, ``tile_dp_size``,
+``pad_tile_batch``, ``shard_tile_batch``) split the tile batches over the
+data axes of a ``torch.distributed`` device mesh; without a mesh they are
+the identity.
 """
 
 from __future__ import annotations
@@ -33,9 +34,10 @@ import numpy as np
 import torch
 
 from .. import obs
-from .buckets import (_bucket_ladder, _bucket_up, to_device, trace_count,
-                      trace_event)
+from .buckets import (_bucket_ladder, _bucket_up, _pad_axis, to_device,
+                      trace_count, trace_event)
 from ..kernels import ops
+from ..launch.sharding import dp_size, tile_batch_sharding, tile_batch_spec
 
 BATCHINGS = ("flat", "ranked", "auto")
 
@@ -463,3 +465,114 @@ def bucket_span_attrs(plan: TilePlan, bk: RankBucket, b: int, r_out: int,
     nbytes = 2 * (bk.padded * b * bk.width + bk.count * b * r_out) * itemsize
     return {"width": bk.width, "count": bk.count, "padded": bk.padded,
             "flops": fl, "flops_padded": fl_pad, "bytes": nbytes}
+
+
+# -- tile-batch sharding hook (the JAX package's sharded tile algebra) --------
+
+TILE_MESH_MODES = ("pad", "error")
+
+_TILE_MESH = {"mesh": None, "on_indivisible": "pad"}
+
+
+def set_tile_mesh(mesh, *, on_indivisible: str = "pad"):
+    """Install (or clear, with ``None``) the ``torch.distributed`` device
+    mesh whose data axes the tile batches split their leading output-tile
+    axis over. Returns the previously installed mesh so callers can restore
+    it.
+
+    ``on_indivisible`` decides what :func:`shard_tile_batch` does when a
+    batch axis does not divide the mesh's data-parallel size:
+
+    * ``"pad"`` (default): zero-pad the leading axis up to the next
+      multiple and shard the padded batch. Zero tiles are numerically inert
+      in every accumulation path, and the index-driven gathers of the tile
+      algebra never reference the trailing pad slots, so results are
+      unchanged. Call sites that must keep the caller-visible shape
+      (``preserve_shape=True``) replicate instead.
+    * ``"error"``: raise ``ValueError`` with the offending sizes, so a
+      topology mismatch fails at the first sharded dispatch instead of
+      silently running replicated.
+    """
+    if on_indivisible not in TILE_MESH_MODES:
+        raise ValueError(f"on_indivisible must be one of {TILE_MESH_MODES}, "
+                         f"got {on_indivisible!r}")
+    prev = _TILE_MESH["mesh"]
+    _TILE_MESH["mesh"] = mesh
+    _TILE_MESH["on_indivisible"] = on_indivisible
+    return prev
+
+
+def tile_mesh():
+    return _TILE_MESH["mesh"]
+
+
+def tile_dp_size() -> int:
+    """Size of the installed mesh's data-parallel axes (1 when no mesh)."""
+    mesh = _TILE_MESH["mesh"]
+    return 1 if mesh is None else dp_size(mesh)
+
+
+def pad_tile_batch(n: int) -> int:
+    """Smallest batch count >= ``n`` divisible by the installed mesh's DP
+    size (``n`` itself without a mesh). The right driver sizes its
+    accumulation buffers with this so that they always divide."""
+    dp = tile_dp_size()
+    return int(-(-n // dp) * dp) if n else n
+
+
+def tile_batch_rows(n: int, *, preserve_shape: bool = False
+                    ) -> tuple[int, range]:
+    """Where a tile batch of ``n`` rows lies on the installed mesh: its
+    global row count (``n``, or padded up to :func:`pad_tile_batch` under
+    ``"pad"``) and the rows this rank holds (all of them when replicated or
+    without a mesh). Applies the ``on_indivisible`` mode: ``"error"``
+    raises on an indivisible ``n``; ``preserve_shape=True`` replicates it
+    under ``"pad"``."""
+    mesh = _TILE_MESH["mesh"]
+    if mesh is None:
+        return n, range(n)
+    dp = tile_dp_size()
+    if dp > 1 and n % dp != 0:
+        if _TILE_MESH["on_indivisible"] == "error":
+            names = mesh.mesh_dim_names
+            raise ValueError(
+                f"tile-batch axis of size {n} does not divide the "
+                f"mesh's data-parallel size {dp} "
+                f"(mesh {dict(zip(names, mesh.shape))}); pad the batch to "
+                f"a multiple of {dp} (see pad_tile_batch) or install "
+                f"the mesh with on_indivisible='pad'")
+        if preserve_shape:
+            return n, range(n)
+        n = pad_tile_batch(n)
+    return n, tile_batch_sharding(mesh, n, 1)
+
+
+def shard_tile_batch(*arrays, preserve_shape: bool = False):
+    """Place each tensor's leading (tile-batch) axis across the installed
+    mesh's data axes (``launch/sharding.py``); identity when no mesh is
+    set.
+
+    Returns DTensors of the JAX package's global shapes: each rank holds
+    its block of rows (``.to_local()``), or all of them where the batch is
+    replicated. When the axis does not divide the mesh's DP size, the
+    installed ``on_indivisible`` mode decides (see :func:`set_tile_mesh`):
+    ``"pad"`` zero-pads the leading axis up to the next multiple,
+    ``"error"`` raises. ``preserve_shape=True`` marks call sites whose
+    shape must match the input (persistent driver state): they shard when
+    divisible and replicate otherwise under ``"pad"``; ``"error"`` still
+    raises.
+    """
+    mesh = _TILE_MESH["mesh"]
+    if mesh is None:
+        return arrays[0] if len(arrays) == 1 else arrays
+    from torch.distributed.tensor import DTensor
+
+    out = []
+    for x in arrays:
+        n, rows = tile_batch_rows(int(x.shape[0]),
+                                  preserve_shape=preserve_shape)
+        x = _pad_axis(x, n)
+        out.append(DTensor.from_local(
+            x[rows.start:rows.stop].clone(), mesh,
+            tile_batch_spec(n, x.ndim, mesh), run_check=False))
+    return out[0] if len(out) == 1 else tuple(out)

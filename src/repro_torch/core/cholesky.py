@@ -71,13 +71,15 @@ from .algebra import tlr_round_tiles, tlr_syrk_column
 from .ara import (ARAParams, ara_compress_dense, ara_iteration, init_state,
                   rank_overflow, run_ara_fused, torch_probes)
 from .batching import (batching_trace_count, bucket_width,
-                       bucketed_round_tiles, resolve_policy, tile_plan)
+                       bucketed_round_tiles, pad_tile_batch, resolve_policy,
+                       tile_batch_rows, tile_mesh, tile_plan)
 from .buckets import _bucket_ladder, _bucket_up, _column_buckets, _pad_axis
 from .health import HealthMonitor, RetryPolicy, column_flags
 from .operator import TLRFactorization
 from .stages import LookaheadSchedule, SequentialSchedule, Stage, run_graph
 from .tlr import TLRMatrix, tril_index, tril_pairs, zeros_like_structure
 from ..kernels import ops
+from ..launch.sharding import gather_rows
 
 Probes = Callable[..., torch.Tensor]
 
@@ -794,13 +796,15 @@ def _dispatch(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
     # ``stats["telemetry"]`` metrics snapshot (per-phase FLOP/s,
     # padded-vs-useful ratios), with the plan-level analytic ratio from
     # ``stats["policy"]`` copied alongside for parity checks, and the
-    # dispatch-shape registry folded in as a counter sample. One device,
-    # no mesh: the JAX package's attributes when it runs without one.
+    # dispatch-shape registry folded in as a counter sample.
+    mesh = tile_mesh()
     sched = "lookahead" if (opts.lookahead and opts.algo == "right") \
         else "sequential"
     with obs.span("chol.factorize", cat="factor", algo=opts.algo,
-                  nb=A.nb, b=A.b, schedule=sched, devices=1,
-                  mesh="") as root:
+                  nb=A.nb, b=A.b, schedule=sched,
+                  devices=(mesh.size() if mesh is not None else 1),
+                  mesh=(str(dict(zip(mesh.mesh_dim_names, mesh.shape)))
+                        if mesh is not None else "")) as root:
         fact = driver(A, opts)
     obs.record_retraces()
     snap = obs.metrics_snapshot(root=root)
@@ -820,6 +824,10 @@ def _factorize(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
     ranked = batching == "ranked"
 
     Lout = zeros_like_structure(nb, b, r_out, A.dtype, A.device)
+    # Under a tile mesh the left driver runs replicated on every rank; of
+    # the JAX package's sharding of Lout's stacks (``preserve_shape``) only
+    # the mesh's indivisibility mode applies.
+    tile_batch_rows(Lout.U.shape[0], preserve_shape=True)
     dvec = A.D.new_zeros((nb, b)) if opts.ldl else None
     perm = np.arange(nb)
     ladder = _bucket_ladder(nb - 1)
@@ -1151,12 +1159,31 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
     # Accumulation buffers: every off-diagonal tile's running low-rank
     # concatenation, seeded with A's factors and updated in place.
     # In the working precision even when A's factors are stored lower.
-    accU = A.D.new_zeros((nt, b, w_acc))
-    accV = A.D.new_zeros((nt, b, w_acc))
-    accU[:, :, :A.r_max] = A.U
-    accV[:, :, :A.r_max] = A.V
-    tile_w = tile_plan(A.ranks, A.r_max).ranks_host.copy() if ranked \
-        else None
+    # Under a tile mesh the tile axis is padded to the mesh's sharding
+    # quantum (``pad_tile_batch``; the pad tiles are zero, of width 0, and
+    # nothing indexes them) and each rank holds only its block ``held``:
+    # the flushes round local rows, the SYRK appends to local tiles, and a
+    # panel gathers its column's tiles across the ranks. The diagonal
+    # tiles, the panels and the factor stay replicated.
+    mesh = tile_mesh()
+    nt_p = pad_tile_batch(nt)
+    _, held = tile_batch_rows(nt_p)
+    sharded = len(held) < nt_p
+    syrk_rows = held if sharded else None
+    # D and the factor stay replicated, under the mesh's indivisibility
+    # mode all the same (the JAX package shards them when they divide).
+    tile_batch_rows(nb, preserve_shape=True)
+    tile_batch_rows(nt, preserve_shape=True)
+    accU = A.D.new_zeros((len(held), b, w_acc))
+    accV = A.D.new_zeros((len(held), b, w_acc))
+    seed = slice(held.start, min(held.stop, nt))
+    accU[:seed.stop - seed.start, :, :A.r_max] = A.U[seed]
+    accV[:seed.stop - seed.start, :, :A.r_max] = A.V[seed]
+    if ranked:
+        tile_w = np.zeros(nt_p, np.int64)
+        tile_w[:nt] = tile_plan(A.ranks, A.r_max).ranks_host
+    else:
+        tile_w = None
     pairs_np = tril_pairs(nb)
     Lout = zeros_like_structure(nb, b, r_p, A.dtype, A.device)
     dvec = A.D.new_zeros((nb, b)) if opts.ldl else None
@@ -1169,6 +1196,9 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
         "column_traces": 0, "project_traces": 0, "diag_traces": 0,
         "safety_valve": False, "flushes": 0, "acc_width": w_acc,
         "batching": batching, "append_widths": [], "policy": policy,
+        # this rank's accumulator bytes, per buffer (accU; accV the same)
+        "acc_bytes": accU.numel() * accU.element_size(),
+        "tile_rows": [held.start, held.stop, nt_p],
     }
     health = HealthMonitor(opts.retry, "right", nb) if opts.check else None
     # The trailing diagonal tiles are updated in place: work on a copy so
@@ -1205,6 +1235,19 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
               else 0) if ranked else r_p
         c.update(ranks_h=ranks_h, err_h=c["err"].cpu().numpy(), wk=wk)
 
+    def _column_tiles(tidx_np: np.ndarray, tidx: torch.Tensor, width: int):
+        """Column tiles ``tidx`` of both accumulators at full width. Under a
+        tile mesh, gathered across the ranks at the live ``width`` and
+        zero-extended, so the panel rounds the same input as on one
+        device."""
+        if not sharded:
+            return accU[tidx], accV[tidx]
+        return tuple(
+            torch.nn.functional.pad(
+                gather_rows(acc[:, :, :width], held, tidx_np, mesh),
+                (0, w_acc - width))
+            for acc in (accU, accV))
+
     def _panel_stage(k: int):
         # One rounding pass over the column's accumulated tiles (row batch
         # padded up the bucket ladder, as in the JAX package; per rank
@@ -1221,14 +1264,20 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
             with obs.span("chol.panel", cat="factor", k=k, T=T,
                           Tb=Tb) as psp:
                 if ranked:
+                    tw = st["tile_w"][tidx_np]
+                    aU, aV = _column_tiles(tidx_np, tidx,
+                                           int(tw.max(initial=0)))
                     Q, B, ranks, err = bucketed_round_tiles(
-                        accU[tidx], accV[tidx], st["tile_w"][tidx_np],
-                        opts.eps, r_out=r_p)
+                        aU, aV, tw, opts.eps, r_out=r_p)
                 else:
-                    aU = _pad_axis(accU[tidx], Tb)
-                    aV = _pad_axis(accV[tidx], Tb)
-                    Q, B, ranks, err = tlr_round_tiles(aU, aV, opts.eps,
-                                                       r_out=r_p)
+                    # Under lookahead the previous column's head has
+                    # appended past ``used``, which its tail advances.
+                    aU, aV = _column_tiles(
+                        tidx_np, tidx,
+                        min(st["used"] + (r_p if lookahead else 0), w_acc))
+                    Q, B, ranks, err = tlr_round_tiles(
+                        _pad_axis(aU, Tb), _pad_axis(aV, Tb), opts.eps,
+                        r_out=r_p)
                 Vn = _trsm(c["Lkk"], c["dk"], B, opts.ldl)
                 Qs = Q[:T]
                 if faults.active():
@@ -1317,11 +1366,16 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
         # in one rounding pass over the whole grid (tiles of factored
         # columns are dead; rounding them too keeps one batch shape, as in
         # the JAX package): one r_max-wide batch, or one per rank bucket
-        # of the tracked content widths.
+        # of the tracked content widths. Under a tile mesh each rank rounds
+        # its own rows, and the ranked widths are gathered so that every
+        # rank keeps the whole host array.
         with obs.span("chol.flush", cat="factor", k=k):
             if ranked:
                 Uc, Vc, rc, _ = bucketed_round_tiles(
-                    accU, accV, st["tile_w"], opts.eps, r_out=b)
+                    accU, accV, st["tile_w"][held.start:held.stop],
+                    opts.eps, r_out=b)
+                if sharded:
+                    rc = gather_rows(rc, held, np.arange(nt_p), mesh)
                 st["tile_w"] = rc.cpu().numpy().astype(np.int64)
             else:
                 Uc, Vc, _, _ = tlr_round_tiles(accU, accV, opts.eps,
@@ -1379,7 +1433,8 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
                                       T=T, part=part):
                             tlr_syrk_column(accU, accV, st["tile_w"], D,
                                             Qs[:, :, :wk], Vns[:, :, :wk],
-                                            ranks, dk, k, part=part)
+                                            ranks, dk, k, part=part,
+                                            rows=syrk_rows)
                         st["tile_w"][bump] += wk
                 else:
                     if part != "tail" and st["used"] + r_p > w_acc:
@@ -1387,7 +1442,8 @@ def _factorize_right(A: TLRMatrix, opts: CholOptions) -> TLRFactorization:
                     with obs.span("chol.syrk", cat="factor", k=k, wk=wk,
                                   T=T, part=part):
                         tlr_syrk_column(accU, accV, st["used"], D, Qs, Vns,
-                                        ranks, dk, k, part=part)
+                                        ranks, dk, k, part=part,
+                                        rows=syrk_rows)
                     if part != "head":
                         st["used"] += r_p
             if side is not None:

@@ -173,10 +173,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
+// Shared memory above the 48 KB default needs an opt-in per kernel. The
+// default covers a block's static and dynamic shared memory together, so a
+// kernel with static arrays needs the opt-in below 48 KB of dynamic memory
+// too (lr_sample's f64 FMA kernel: 18 KB static, and at r = 256 32 KB
+// dynamic, failed to launch without it).
 template <class Kernel>
 inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (bytes + attr.sharedSizeBytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }

@@ -82,10 +82,21 @@ def rotation(alpha: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor):
     / rho``: ``c = sqrt((1 + u) / 2)``, ``s = (v / 2) / c`` for x >= 0, else
     ``s = copysign(sqrt((1 - u) / 2), v)``, ``c = (v / 2) / s``. Each
     branch adds or subtracts two numbers of one sign, so neither cancels;
-    c >= 0. The CUDA kernel evaluates the same expressions."""
+    c >= 0. The CUDA kernel evaluates the same expressions.
+
+    ``rho`` is ``max(|x|, |y|) sqrt(1 + q^2)``, ``q = min / max``, from
+    correctly rounded operations only (the CUDA kernel has no hypot
+    either): ``torch.hypot``'s vectorised and scalar loops on the CPU
+    round differently in the last place, so a tile's rotations would
+    depend on its position in the batch, and the sharded right driver,
+    whose ranks each round their own block of tiles, would not reproduce
+    the single-device factor bit for bit."""
     tiny = torch.finfo(alpha.dtype).tiny
     x, y = alpha - beta, 2.0 * gamma
-    rho = torch.hypot(x, y)
+    ax, ay = x.abs(), y.abs()
+    big = torch.maximum(ax, ay)
+    q = torch.minimum(ax, ay) / big
+    rho = big * torch.sqrt(q * q + 1.0)
     u, v = x / rho, y / rho
     c_pos = torch.sqrt(0.5 + 0.5 * u)
     s_neg = torch.copysign(torch.sqrt(0.5 - 0.5 * u), v)

@@ -11,10 +11,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # Names the port does not have yet, with the ROADMAP Queue 1 item that
 # brings each.
-TO_PORT = {
-    "set_tile_mesh": 8, "tile_mesh": 8, "tile_dp_size": 8,
-    "pad_tile_batch": 8, "shard_tile_batch": 8,
-}
+TO_PORT: dict[str, int] = {}
 # Names that exist only because of JAX: the compile-count views of jitted
 # cores and the deprecated ``from_dense`` shim.
 JAX_ONLY = {"algebra_trace_count", "trsm_trace_count", "from_dense"}

@@ -171,6 +171,35 @@ def test_cuda_tile_chain_f64_eight_byte_copies(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("r", [129, 256, 384, 512])
+def test_cuda_lr_sample_fma_widths(cuda_device, r, dtype):
+    """On the card: lr_sample's FMA kernel at factor widths past the f64
+    tensor-core kernel's 128 (a left Cholesky whose L ranks pass 128, as
+    the fractional-diffusion path's at eps 1e-4), whose shared memory,
+    static and dynamic together, passes the 48 KB default in f64 from r =
+    192 on; the gate rejects the last j term dropped."""
+    T, J, b, s = 3, 4, 512, 16
+    assert tlr._config(dtype, r, s) == tlr.FMA
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device,
+                           dtype=dtype)
+
+    Ui, Vi, W2 = rnd(T, J, b, r), rnd(T, J, b, r), rnd(J, b, s)
+    got = ops.lr_sample(Ui, Vi, W2)
+    want = tlr.lr_sample_plain(Ui, Vi, W2)
+    fault = tlr.lr_sample_plain(Ui[:, :-1].contiguous(),
+                                Vi[:, :-1].contiguous(),
+                                W2[:-1].contiguous())
+    atol = (1e-12 if dtype == torch.float64 else 1e-5) * float(
+        want.abs().max())
+    assert float((got - want).abs().max()) <= atol
+    assert float((fault - want).abs().max()) > atol
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("s", [16, 17, 20])
 @pytest.mark.parametrize("T,J", [(1, 1), (1, 62), (3, 5), (63, 30)])
 def test_cuda_lr_sample_f64_tensor_cores(cuda_device, T, J, s):
