@@ -101,7 +101,22 @@ before it and read just after:
     Cholesky and the ranked one with lookahead, each gated on every rank
     equal to rank 0 bit for bit, rank 0 within 1e-12 of the single-device
     factor, the residual gate, a finite solve and half the accumulator
-    bytes a rank, logging each rank's seconds, peak memory and launches.
+    bytes a rank, logging each rank's seconds, peak memory and launches;
+13. the dense LM path at qwen1.5-0.5b's full width (``lm_phase``): the
+    ``Trainer`` on the card at batch 8 x 1024 (AdamW's defaults, keep 1):
+    8 steps (finite losses, the last below the first), 4 steps whose
+    checkpoint restores bitwise, a resume of those to 8 steps (at step 4,
+    each loss within 2e-2 of the 8-step run's) and 2 steps with rank-8
+    gradient compression (ratio > 1, only the 2-D leaves compressed), each
+    putting back the signal handlers it installed; then
+    ``DecodeServer(slots=4, max_len=256)`` on the trained parameters (8
+    greedy requests of 16 tokens, each completing once, a second server
+    giving the same tokens, the decode step's logits within 5e-2 of
+    ``prefill``'s); then TLR-KFAC on a least-squares problem of qwen's down
+    projection's shape (2816 inputs, 1024 outputs, tile 32: the left
+    Cholesky of the curvature factor launches the three sampling kernels),
+    gated on beating AdamW, on 0.2 x its first loss and on each refresh's
+    factor residual (100 eps_tlr).
 
 Then it holds each kernel against its plain PyTorch version on the card
 (f64, f32 and bf16; f64 and f32 for the QR and SVD) at the paths' shapes
@@ -117,8 +132,9 @@ the card against the same run on the CPU (flat and ranked; and both
 fractional-diffusion preconditioners at n = 512, tile 64). The kernels
 are also held at the rank-bucket widths of ranked batching (width 1 to
 128, zero-tile count padding), at each kernel's widest bucket on its
-ranked path and at each kernel's widest shape on the two
-fractional-diffusion paths. Kernel times are CUDA events
+ranked path, at each kernel's widest shape on the two
+fractional-diffusion paths and at the sampling kernels' widest tile-32
+shape on the TLR-KFAC path. Kernel times are CUDA events
 over back-to-back calls; a sampling kernel's case under DISPATCH_MS is
 also timed from a CUDA graph (``graph_ms`` and its kin beside ``ms``),
 since the host's dispatch sets the pace of back-to-back calls there.
@@ -179,6 +195,22 @@ NS_N, NS_TILE, NS_EPS, NS_ITERS = 8192, 128, 1e-8, (4, 8)
 # requests on the fractional-diffusion one (twice the slots, so columns
 # refill mid-flight).
 SERVE_SLOTS, SERVE_CHECK, SERVE_REQUESTS, FRAC_SERVE_REQUESTS = 8, 4, 64, 16
+# The dense LM path (path 13): qwen1.5-0.5b at its published width
+# (``repro_torch.configs.qwen1_5_0_5b``: 24 layers, d 1024, 16 heads, ff
+# 2816, V 151936, bf16, remat), trained at LM_BATCH x LM_SEQ tokens a step
+# with AdamW's defaults (run A LM_STEPS steps; run B the first LM_SPLIT,
+# resumed by run C; LM_COMPRESS_STEPS more from run C's state with rank-8
+# gradient compression, not checkpointed),
+# then served (LM_REQUESTS greedy requests of LM_NEW tokens through
+# LM_SLOTS slots of LM_MAX_LEN); and TLR-KFAC on a least-squares problem of
+# qwen's down projection's shape: KFAC_N inputs (d_ff), KFAC_M outputs
+# (d_model), KFAC_SAMPLES samples, KFAC_STEPS steps, curvature tiles of
+# KFAC_TILE factored at ``CholOptions(bs=KFAC_BS)``.
+LM_ARCH, LM_BATCH, LM_SEQ = "qwen1.5-0.5b", 8, 1024
+LM_STEPS, LM_SPLIT, LM_COMPRESS_STEPS = 8, 4, 2
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 4, 256, 8, 16
+KFAC_N, KFAC_M, KFAC_SAMPLES, KFAC_STEPS = 2816, 1024, 4096, 30
+KFAC_TILE, KFAC_BS = 32, 8
 # Kernel against plain version: max abs error <= TOL * max |plain output|
 # (the tolerances of tests/test_kernels.py, relative to the output's scale),
 # for every output of the kernel. small_svd is held at TOL_SCALE = 10 times
@@ -212,6 +244,8 @@ KERNELS = ("batched_gemm", "tile_chain", "lr_sample", "batched_qr",
 # (``event_ms``) is the host's dispatch rate, not the kernel: such cases are
 # also timed as GRAPH_CALLS calls replayed from a CUDA graph (``graph_ms``).
 DISPATCH_MS, GRAPH_CALLS = 0.1, 50
+# a plain or library call at least this long is timed once (long_or_mean_ms)
+LONG_MS = 100.0
 MAIN_KERNELS = ("batched_gemm", "tile_chain", "lr_sample")
 ROUND_KERNELS = ("batched_gemm", "batched_qr", "small_svd")
 REPLACES = {
@@ -228,6 +262,9 @@ SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
 # (src/repro_torch/core/buckets.py; tests/test_torch_kernels.py checks it).
 LR_BUCKETS = ((63, 30), (32, 46), (16, 54), (8, 58), (4, 60), (2, 61),
               (1, 62))
+# The (tile, ARA block size) of a path's lr_sample calls where they are not
+# (TILE, 16).
+PATH_BS = {"kfac": (KFAC_TILE, KFAC_BS)}
 # Label prefix of the kernel cases at the widest rank bucket a ranked path
 # gave each kernel (``widest_bucket``).
 RANKED_HEAD = "ranked widest bucket"
@@ -274,6 +311,29 @@ def graph_ms(fn, replays: int = 5) -> float:
     ms = start.elapsed_time(stop) / (GRAPH_CALLS * replays)
     del graph
     return ms
+
+
+def event_call(fn):
+    """``fn()`` once between CUDA events: (its result, device ms)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def long_or_mean_ms(fn, reps: int, first_ms: float | None = None) -> float:
+    """Device ms of ``fn``: one call's (``first_ms``, else a new call's)
+    when it takes LONG_MS or more, else ``event_ms(fn, reps)``. The plain
+    SVD is ~3000 small launches (2-4 s a call on an H100 whatever the
+    batch) and cuSOLVER's SVD loops over the batch: repeating such calls
+    took ~190 s of the smoke."""
+    if first_ms is None:
+        _, first_ms = event_call(fn)
+    return first_ms if first_ms >= LONG_MS else event_ms(fn, reps)
 
 
 def event_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -548,7 +608,8 @@ def kernel_cases(torch, ranks_a, device="cuda", ranked=None):
                           f"{int(ranks.max())}")
             if name == "lr_sample":
                 Tr, J, r = shape
-                out.append((name, label, False, lrs(Tr, J, TILE, r, 16)))
+                b, sc = PATH_BS.get(path, (TILE, 16))
+                out.append((name, label, False, lrs(Tr, J, b, r, sc)))
             elif name == "tile_chain":
                 Tr, b, r, sc = shape
                 out.append((name, label, False, chain(Tr, b, r, sc)))
@@ -808,10 +869,15 @@ def check_kernels(ranks_a, only=None, ranked=None) -> dict:
             dn = str(dtype).removeprefix("torch.")
             tol = TOL[dn] * TOL_SCALE.get(name, 1.0)
             abs_tol = CASE_ATOL.get((name, label), {}).get(dn)
+            t_case = time.perf_counter()
             case = make(dtype)
             kernel, plain, fault, library, nbytes, flops, post = case[:7]
             post = post or (lambda out: out)
-            raw = plain()
+            # timed: f64 (the kernels line's dtype) and each headline in
+            # every dtype; a widest-bucket case's f32 / bf16 times went
+            # nowhere and took ~56 s of the run on an H100
+            timed = dtype == torch.float64 or headline
+            raw, plain_first = event_call(plain)
             want = post(raw)
             got = kernel()
             rec = {"kernel": name, "shape": label, "dtype": dn}
@@ -836,18 +902,11 @@ def check_kernels(ranks_a, only=None, ranked=None) -> dict:
                 # columns whose sign the kernel and the plain version differ in
                 rec["sign_flips"] = int((svd_column_signs(got[2]) !=
                                          svd_column_signs(raw[2])).sum())
-            if dtype == torch.float64 or headline or \
-                    label.startswith(RANKED_HEAD):
-                # the plain SVD is ~3000 small launches and cuSOLVER's SVD
-                # loops over the batch: time the costly calls once, after
-                # one warm call (cuSOLVER's first call sets up its handle)
-                slow = flops > 1e11
+            if timed:
                 reps = 3 if flops > 5e10 else 10
                 rec["ms"] = event_ms(kernel, reps)
-                rec["plain_ms"] = event_ms(plain, 1 if slow else reps,
-                                           1 if slow else 2)
-                rec["library_ms"] = event_ms(library, 1 if slow else reps,
-                                             1 if slow else 2)
+                rec["plain_ms"] = long_or_mean_ms(plain, reps, plain_first)
+                rec["library_ms"] = long_or_mean_ms(library, reps)
                 if name in MAIN_KERNELS and rec["ms"] < DISPATCH_MS:
                     # back-to-back calls time the host's dispatch here:
                     # replay them from a CUDA graph for the device time
@@ -858,6 +917,7 @@ def check_kernels(ranks_a, only=None, ranked=None) -> dict:
                                             flops / PEAK_FLOPS[dn])
                 rec["bound_by"] = ("bytes" if nbytes / PEAK_BYTES
                                    >= flops / PEAK_FLOPS[dn] else "operations")
+            rec["s"] = time.perf_counter() - t_case   # the case's seconds
             log(json.dumps(rec))
             if not ok:
                 raise AssertionError(f"{name} {label} {dn}: kernel disagrees "
@@ -2569,6 +2629,386 @@ def mixed_phase(op, K, Z) -> dict:
     return {"mixed": launches}
 
 
+# -- phase 18: the dense LM path (models, optim, train, checkpoint) -------------
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def d_step(tr, step: int, ccfg, params, ostate, cstate):
+    """One step of ``Trainer._run`` with compressed gradients, without its
+    checkpointing: (loss, params, ostate, cstate, compression stats)."""
+    import torch
+    from repro_torch.optim import compress_grads
+    from repro_torch.train.trainer import step_generator
+    batch = {k: torch.from_numpy(v).to(tr.device)
+             for k, v in tr.data.batch_at(step).items()}
+    loss, grads, _ = tr.fwd_bwd(params, batch)
+    grads, cstate, stats = compress_grads(
+        grads, cstate, ccfg, step_generator(tr.tcfg.seed, step, tr.device))
+    params, ostate = tr.apply(grads, ostate, params)
+    return loss, params, ostate, cstate, stats
+
+
+def lm_train_phase(cfg, work: Path, dev: str = "cuda") -> dict:
+    """Path 13 (a): ``Trainer`` runs on the card at ``cfg``'s full width,
+    each in its own directory under ``work``, each saving once, at its end
+    (``save_every`` past its steps: the loop's save at a multiple of
+    ``save_every`` would repeat the final one), with ``keep=1``. Run A:
+    LM_STEPS steps, every loss finite and the last below the first. Run B:
+    LM_SPLIT steps; its checkpoint restored bitwise equal to its final
+    (params, AdamW state). Run C: LM_STEPS on B's directory, resumed at
+    LM_SPLIT, each loss within 2e-2 relative of run A's at that step (the
+    bf16 embedding backward sums with atomics, so the runs are not
+    bitwise). Run D: LM_COMPRESS_STEPS more steps from run C's state
+    through the trainer's step (``d_step``, no checkpoint) with
+    ``CompressConfig(rank=8)``: finite losses, ``ratio > 1``, and the
+    compressed leaves those of the JAX package's rule: the 2-D ones (the
+    embedding, the stacked biases and norm scales), none of the stacked
+    3-D projections.
+    Each run must put back the SIGTERM / SIGINT handlers it installed. Logs
+    step seconds, tokens/s, peak memory, and the checkpoints' bytes and
+    save / restore seconds. Returns the launches and run C's parameters."""
+    import shutil
+    import signal
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import latest_checkpoint, restore_checkpoint
+    from repro_torch.kernels import ops
+    from repro_torch.optim import CompressConfig, compress_init
+    from repro_torch.optim.tlr_newton import _leaf_names
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.tree import leaves
+
+    sigs = (signal.SIGTERM, signal.SIGINT)
+    handlers = [signal.getsignal(s) for s in sigs]
+    saves = []
+    inner = trainer_mod.save_checkpoint
+
+    def timed_save(directory, step, tree, **kw):
+        path, sec = sync_time(lambda: inner(directory, step, tree, **kw))
+        saves.append((step, sec, dir_bytes(path)))
+        return path
+
+    def run(name: str, steps: int, ckpt: str | None = None,
+            compress=None):
+        d = work / (ckpt or name)
+        tcfg = TrainConfig(steps=steps, batch=LM_BATCH, seq_len=LM_SEQ,
+                           ckpt_dir=str(d), save_every=10**9, log_every=1,
+                           keep=1, seed=0, compress=compress,
+                           metrics_path=str(work / f"{name}.jsonl"))
+        tr = Trainer(cfg, tcfg, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        n_saves = len(saves)
+        try:
+            res, sec = sync_time(tr.run)
+        finally:
+            tr.close()
+        assert [signal.getsignal(s) for s in sigs] == handlers, \
+            f"lm run {name}: Trainer.run left its signal handlers installed"
+        peak = torch.cuda.max_memory_allocated()
+        dts = [json.loads(x)["dt"] for x in
+               (work / f"{name}.jsonl").read_text().splitlines()
+               if json.loads(x)["event"] == "step"]
+        losses = res["losses"]
+        tok_s = LM_BATCH * LM_SEQ / float(np.median(dts[1:] or dts))
+        save = saves[n_saves:]
+        log(f"lm run {name}: {res['status']} at step {res['step']} "
+            f"(resumed from {tr.resumed_from}) in {sec:.2f} s; losses "
+            f"{[round(x, 4) for x in losses]}; step seconds "
+            f"{[round(x, 3) for x in dts]}; {tok_s:.0f} tokens/s (median "
+            f"step after the first); peak {peak / 2**30:.2f} GiB; saves "
+            f"(step, s, bytes) {[(st, round(t, 2), b) for st, t, b in save]}")
+        assert res["status"] == "done", f"lm run {name}: {res['status']}"
+        assert all(math.isfinite(x) for x in losses), \
+            f"lm run {name}: a loss is not finite"
+        return tr, res, {"seconds": sec, "step_seconds": dts,
+                         "tokens_per_s": tok_s, "peak": peak, "saves": save}
+
+    trainer_mod.save_checkpoint = timed_save
+    ops.reset_launch_counts()
+    try:
+        _, res_a, stats_a = run("A", LM_STEPS)
+        la = res_a["losses"]
+        assert la[-1] < la[0], f"lm run A: loss {la[0]} -> {la[-1]}"
+        del res_a
+        shutil.rmtree(work / "A")
+        torch.cuda.empty_cache()
+
+        _, res_b, stats_b = run("B", LM_SPLIT)
+        tree_b = (res_b["params"], res_b["ostate"])
+        ck = latest_checkpoint(work / "B")
+        (step, got, _), t_restore = sync_time(
+            lambda: restore_checkpoint(ck, tree_b))
+        same = all(torch.equal(a, b) for a, b in zip(leaves(got),
+                                                     leaves(tree_b)))
+        log(f"lm run B: {ck.name} ({dir_bytes(ck)} bytes, "
+            f"{len(leaves(tree_b))} leaves) restored in {t_restore:.2f} s, "
+            f"bitwise {'yes' if same else 'no'}")
+        assert step == LM_SPLIT and same, \
+            "lm run B: the restored checkpoint differs from what was saved"
+        del res_b, tree_b, got
+        torch.cuda.empty_cache()
+
+        tr_c, res_c, stats_c = run("C", LM_STEPS, ckpt="B")
+        lc = res_c["losses"]
+        rel_c = [abs(c - a) / abs(a) for c, a in zip(lc, la[LM_SPLIT:])]
+        log(f"lm run C against A at steps {LM_SPLIT}..{LM_STEPS - 1}: "
+            f"relative loss differences {[f'{x:.2e}' for x in rel_c]} "
+            f"(gate 2e-2)")
+        assert tr_c.resumed_from == LM_SPLIT, \
+            f"lm run C resumed from {tr_c.resumed_from}, not {LM_SPLIT}"
+        assert len(lc) == LM_STEPS - LM_SPLIT and max(rel_c) <= 2e-2, \
+            "lm run C: losses differ from run A's"
+        params = res_c["params"]
+        shutil.rmtree(work / "B")
+        torch.cuda.empty_cache()
+
+        # run D: the trainer's own step (fwd_bwd, compress_grads, apply)
+        # from run C's state, with no checkpoint (no gate reads one)
+        ccfg = CompressConfig(rank=8)
+        p_d, o_d, c_d = params, res_c["ostate"], compress_init(params, ccfg)
+        torch.cuda.reset_peak_memory_stats()
+        ld, dts = [], []
+        for step in range(LM_STEPS, LM_STEPS + LM_COMPRESS_STEPS):
+            (loss, p_d, o_d, c_d, cs), sec = sync_time(lambda: d_step(
+                tr_c, step, ccfg, p_d, o_d, c_d))
+            ld.append(float(loss))
+            dts.append(sec)
+        stats_d = {"step_seconds": dts,
+                   "peak": torch.cuda.max_memory_allocated()}
+        names = _leaf_names(params)
+        compressed = [names[i] for i in cs["compressed"]]
+        # the JAX package's rule: 2-D, at least min_size entries, both
+        # sides above the rank; the stacked (R, width) biases and norm
+        # scales are 2-D too, the stacked projections 3-D
+        want = [name for name, x in zip(names, leaves(params))
+                if x.ndim == 2 and x.numel() >= 64 * 64 and
+                min(x.shape) > 8]
+        log(f"lm run D (compress rank 8, steps {LM_STEPS}.."
+            f"{LM_STEPS + LM_COMPRESS_STEPS - 1} from run C's state): losses "
+            f"{[round(x, 4) for x in ld]}; step seconds "
+            f"{[round(x, 3) for x in dts]}; peak "
+            f"{stats_d['peak'] / 2**30:.2f} GiB; payload "
+            f"{cs['payload_bytes']} of {cs['raw_bytes']} bytes, ratio "
+            f"{cs['ratio']:.3f}; compressed leaves {compressed}")
+        assert all(math.isfinite(x) for x in ld), \
+            "lm run D: a loss is not finite"
+        assert cs["ratio"] > 1, "lm run D: compression ratio not above 1"
+        assert compressed == want and "emb/tok" in compressed, \
+            f"lm run D: compressed {compressed}, not {want}"
+        del res_c, p_d, o_d, c_d
+    finally:
+        trainer_mod.save_checkpoint = inner
+    launches = ops.launch_counts()
+    log(f"lm train: launches {json.dumps(launches)}")
+    return {"params": params, "launches": launches,
+            "runs": {"A": stats_a, "B": stats_b, "C": stats_c,
+                     "D": stats_d}}
+
+
+def lm_serve_phase(cfg, params, dev: str = "cuda") -> dict:
+    """Path 13 (b): ``DecodeServer(slots=LM_SLOTS, max_len=LM_MAX_LEN)`` on
+    the trained parameters drains LM_REQUESTS greedy requests (prompts of
+    3 to LM_REQUESTS + 2 tokens) of LM_NEW tokens. Gates: every request
+    completes once with LM_NEW in-vocabulary tokens; a second server gives
+    the same tokens; the server's step, fed the longest prompt alone in
+    slot 0, ends on logits within 5e-2 (relative to their max; bf16) of
+    ``prefill``'s last-position logits for it, on the trained weights and
+    on freshly drawn ones. Logs tokens/s and ticks."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_model, prefill
+    from repro_torch.train import DecodeServer, Request
+
+    V = cfg.vocab_size
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, V, size=3 + i).tolist()
+               for i in range(LM_REQUESTS)]
+    ops.reset_launch_counts()
+
+    def drain():
+        srv = DecodeServer(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                           device=dev)
+        reqs = [Request(prompt=p, max_new_tokens=LM_NEW, rid=i)
+                for i, p in enumerate(prompts)]
+        done, sec = sync_time(lambda: srv.run(reqs))
+        return srv, {c.rid: c.tokens for c in done}, len(done), sec
+
+    srv, toks, n_done, sec = drain()
+    ticks = srv.ticks
+    ntok = sum(len(t) for t in toks.values())
+    log(f"lm serve: {n_done} completions, {ntok} tokens in {sec:.3f} s "
+        f"({ntok / sec:.1f} tokens/s), {srv.ticks} ticks "
+        f"({1e3 * sec / srv.ticks:.2f} ms a tick), {LM_SLOTS} slots")
+    assert n_done == LM_REQUESTS and sorted(toks) == \
+        list(range(LM_REQUESTS)), "lm serve: a request did not complete once"
+    for rid, t in toks.items():
+        assert len(t) == LM_NEW and all(0 <= x < V for x in t), \
+            f"lm serve: request {rid} gave {t}"
+    _, toks2, _, sec2 = drain()
+    log(f"lm serve: a second server in {sec2:.3f} s gives the same tokens: "
+        f"{toks2 == toks}")
+    assert toks2 == toks, "lm serve: two servers differ"
+
+    # the decode step against prefill, on the trained weights and on fresh
+    # ones (8 steps from a loss of 15 leave a near-constant prediction)
+    prompt = prompts[-1]
+    for label, weights in (("trained", params),
+                           ("initial", init_model(1, cfg, device=dev))):
+        srv = DecodeServer(cfg, weights, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                           device=dev)
+        tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=dev)
+        for pos, t in enumerate(prompt):
+            tok[0, 0] = t
+            logits, srv.caches = srv._serve(weights, srv.caches, tok, pos)
+        want = prefill(weights, {"tokens": torch.tensor(
+            [prompt], dtype=torch.int32, device=dev)}, cfg)[0, 0].float()
+        got = logits[0, 0].float()
+        err = float((got - want).abs().max() / want.abs().max())
+        log(f"lm serve: step logits after a {len(prompt)}-token prompt "
+            f"against prefill's, {label} weights: max rel diff {err:.3e} "
+            f"(gate 5e-2), argmax {int(got.argmax())} / "
+            f"{int(want.argmax())}")
+        assert err <= 5e-2, f"lm serve: decode logits far from prefill's " \
+            f"({label} weights)"
+        del srv, weights
+    launches = ops.launch_counts()
+    return {"launches": launches, "tokens_per_s": ntok / sec,
+            "ticks": ticks, "seconds": sec}
+
+
+def kfac_phase(dev: str = "cuda") -> dict:
+    """Path 13 (c): TLR-KFAC at a K-FAC factor's real size: the
+    least-squares problem of tests/test_training.py::
+    test_tlr_newton_least_squares with qwen's down projection's shape
+    (KFAC_N inputs, KFAC_M outputs, KFAC_SAMPLES samples, inputs
+    conditioned by ``geomspace(1, 1e-2)``) built on the card from a seeded
+    generator; ``TLRNewtonConfig(tile=KFAC_TILE, refresh_every=5,
+    beta=0)`` with AdamW grafting at lr 3e-2 and no weight decay, against
+    AdamW alone, KFAC_STEPS steps. Gates: the final TLR-KFAC loss below
+    AdamW's and below 0.2 x its first; each refresh's factor at
+    ``max_z ||A z - L L^T z|| / ||A z|| <= 100 eps_tlr`` over three probes
+    (A the damped activation factor); ``lr_sample``, ``tile_chain`` and
+    ``batched_gemm`` launched. Logs the refresh steps' seconds (each
+    compresses and factors A), the ranks and the launches per shape."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.optim import (AdamWConfig, TLRNewtonConfig, adamw_init,
+                                   adamw_update, tlr_newton_init,
+                                   tlr_newton_update)
+    from repro_torch.optim import tlr_newton as tn
+
+    t_phase = time.perf_counter()
+    n, m, B = KFAC_N, KFAC_M, KFAC_SAMPLES
+    g = torch.Generator(device=dev).manual_seed(1)
+    f64 = {"dtype": torch.float64, "device": dev}
+    U, _ = torch.linalg.qr(torch.randn(n, n, generator=g, **f64))
+    cov = (U * torch.logspace(0, -2, n, **f64)) @ U.T
+    X = torch.randn(B, n, generator=g, **f64) @ cov
+    Y = X @ torch.randn(n, m, generator=g, **f64)
+
+    def loss_and_grad(W):
+        R = X @ W.T - Y
+        return float((R * R).mean()), 2 * R.T @ X / B
+
+    ncfg = TLRNewtonConfig(tile=KFAC_TILE, refresh_every=5, beta=0.0,
+                           grafting=AdamWConfig(lr=3e-2, weight_decay=0.0))
+    params = {"w": torch.zeros((m, n), **f64)}
+    nstate = tlr_newton_init(params, ncfg)
+    aw = {"w": torch.zeros((m, n), **f64)}
+    astate = adamw_init(aw, ncfg.grafting)
+    # each refresh step's factorization (the TLR branch's solve is the
+    # factorization's bound method) and the step's seconds
+    newton, adam, step_s, facts = [], [], [], []
+    ops.reset_launch_counts()
+    with gemm_rank_log() as gemm_calls:
+        for _ in range(KFAC_STEPS):
+            refresh = nstate.step % ncfg.refresh_every == 0
+            l_n, g_n = loss_and_grad(params["w"])
+            newton.append(l_n)
+            (params, nstate), sec = sync_time(lambda: tlr_newton_update(
+                {"w": g_n}, nstate, params, ncfg,
+                curvature={"w": (X, None)}))
+            step_s.append(sec)
+            if refresh:
+                facts.append((nstate.facts["w"]["A"], sec))
+            l_a, g_a = loss_and_grad(aw["w"])
+            adam.append(l_a)
+            aw, astate = adamw_update({"w": g_a}, astate, aw, ncfg.grafting)
+    launches = ops.launch_counts()
+    shapes = path_shapes()
+    shapes["batched_gemm"] = gemm_shapes(gemm_calls)
+    A = tn.damped(X.T @ X / B, ncfg)
+    Z = torch.randn(n, 3, generator=g, **f64)
+    AZ = A @ Z
+    resid, ranks = [], []
+    for solve, _ in facts:
+        fact = getattr(solve, "__self__", None)
+        assert fact is not None and fact.L.nb == n // KFAC_TILE, \
+            "kfac: a factor took the dense branch"
+        LZ = fact.tri_matvec(fact.tri_matvec(Z, trans=True))
+        resid.append(float(((AZ - LZ).norm(dim=0) / AZ.norm(dim=0)).max()))
+        ranks.append((int(fact.L.ranks.max()),
+                      round(float(fact.L.ranks.float().mean()), 2)))
+    log(f"kfac: n={n} m={m} samples={B} tile={KFAC_TILE} (nb={n // KFAC_TILE})"
+        f"; {len(facts)} refresh steps (factorization and update) in "
+        f"{[round(s, 3) for _, s in facts]} s, L ranks (max, mean) {ranks},"
+        f" residuals {[f'{r:.2e}' for r in resid]} (gate "
+        f"{100 * ncfg.eps_tlr:.0e}); steps {[round(s, 3) for s in step_s]} "
+        f"s; losses TLR-KFAC {newton[0]:.4e} -> {newton[-1]:.4e}, AdamW "
+        f"{adam[0]:.4e} -> {adam[-1]:.4e}; launches {json.dumps(launches)}"
+        f"; phase {time.perf_counter() - t_phase:.1f} s")
+    for name in ("lr_sample", "tile_chain"):
+        log(f"kfac: {name} launches per shape: {shapes_line(shapes[name])}")
+    log(f"kfac: batched_gemm launches per (T, m, k, n): "
+        f"{gemm_shapes_line(shapes['batched_gemm'])}")
+    assert len(facts) == -(-KFAC_STEPS // ncfg.refresh_every), \
+        "kfac: refreshes missing"
+    assert max(resid) <= 100 * ncfg.eps_tlr, "kfac: factor residual"
+    assert newton[-1] < adam[-1], "kfac: TLR-KFAC did not beat AdamW"
+    assert newton[-1] < 0.2 * newton[0], "kfac: loss fell too little"
+    for name in MAIN_KERNELS:
+        assert launches[name] > 0, f"kfac: {name} was not launched"
+    out = {"launches": launches, "shapes": shapes,
+           "refresh_seconds": [s for _, s in facts], "residuals": resid,
+           "losses": (newton[-1], adam[-1])}
+    del facts, params, nstate, X, Y, A
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_phase(cfg=None, dev: str = "cuda") -> dict:
+    """Path 13: train, resume and serve qwen1.5-0.5b at its full width (or
+    ``cfg``), then TLR-KFAC (``lm_train_phase``, ``lm_serve_phase``,
+    ``kfac_phase``), on ``dev``; checkpoints go to a temporary directory
+    removed afterwards."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfg = cfg or get_config(LM_ARCH)
+    log(f"lm: {cfg.name} layers={cfg.num_layers} d={cfg.d_model} "
+        f"heads={cfg.num_heads} ff={cfg.d_ff} V={cfg.vocab_size} "
+        f"{cfg.dtype} remat={cfg.remat}; {cfg.param_count()} parameters; "
+        f"batch {LM_BATCH} x {LM_SEQ}")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_"))
+    try:
+        train = lm_train_phase(cfg, work, dev)
+        serve = lm_serve_phase(cfg, train.pop("params"), dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    kfac = kfac_phase(dev)
+    log(f"lm: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"train": train, "serve": serve, "kfac": kfac}
+
+
 # -- phase 17: the right driver on a mesh of ranks (tile sharding) -------------
 
 # The ranks of the mesh phase and its right Cholesky runs, (batching,
@@ -2761,10 +3201,19 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = device_line()
     build_kernels()
+    def elapsed(after: str) -> None:
+        log(f"elapsed: {time.perf_counter() - t_start:.1f} s after {after}")
+
     main = main_path(args.n, args.profile)
+    elapsed("the main path")
     right = right_phase(N_RIGHT, args.profile)
+    elapsed("the right phase")
     frac_pcg = frac_pcg_phase(args.profile)
+    elapsed("frac pcg")
     frac_ns = frac_ns_phase(args.profile)
+    elapsed("frac ns")
+    lm = lm_phase()
+    elapsed("the LM path")
     # each kernel's widest rank bucket on the ranked paths that launch it:
     # the sampling kernels' on the ranked main path, QR's, SVD's and
     # batched_gemm's (at that call's live ranks) on the ranked
@@ -2797,10 +3246,19 @@ def main() -> int:
             for shape in sorted(picks):
                 ranked[name].append((path, shape, sh[shape][2]
                                      if name == "batched_gemm" else None))
+    # the sampling kernels' widest tile-32 shapes on the TLR-KFAC path (its
+    # curvature factors' left Cholesky), batched_gemm's at its live ranks
+    kfac_shapes = lm["kfac"]["shapes"]
+    for name in MAIN_KERNELS:
+        shape = widest_bucket(kfac_shapes[name])
+        if shape:
+            ranked[name].append(("kfac", shape, kfac_shapes[name][shape][2]
+                                 if name == "batched_gemm" else None))
     log("widest rank buckets on the ranked paths: " + json.dumps(
         {name: [(path, shape) for path, shape, _ in cases]
          for name, cases in ranked.items()}))
     results = check_kernels(main["ranks_a"], ranked=ranked)
+    elapsed("the kernel checks")
     small_parity()
 
     other = "flat" if main["batching"] == "ranked" else "ranked"
@@ -2826,7 +3284,8 @@ def main() -> int:
                    "telemetry_right_ranked",
                    "telemetry_right_ranked_lookahead",
                    "telemetry_right_flat", "mixed",
-                   *(mesh_key(*run) for run in MESH_RUNS))}}
+                   *(mesh_key(*run) for run in MESH_RUNS))},
+               "kfac": lm["kfac"]["launches"]}
     log(f"main path batching: auto -> {main['batching']} (main_{other}: "
         f"the same operator factored with batching={other})")
     kernels = []

@@ -24,9 +24,13 @@ def numpy_dtype(dtype: torch.dtype) -> np.dtype:
 
 def torch_dtype(dtype) -> torch.dtype:
     """A torch dtype from a torch dtype, a numpy dtype or its name
-    (``np.float32``, ``"float32"``, ``torch.float32`` -> ``torch.float32``)."""
+    (``np.float32``, ``"float32"``, ``torch.float32`` -> ``torch.float32``;
+    ``"bfloat16"`` -> ``torch.bfloat16``)."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    name = np.dtype(dtype).name if not isinstance(dtype, str) else dtype
+    if name == "bfloat16":       # numpy has none (ml_dtypes' is foreign)
+        return torch.bfloat16
     return torch.from_numpy(np.zeros((), np.dtype(dtype))).dtype
 
 

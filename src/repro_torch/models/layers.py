@@ -1,0 +1,382 @@
+"""Transformer building blocks: norms, RoPE, GQA attention (chunked /
+decode), MLPs, embeddings, chunked cross-entropy (the port's
+``repro/models/layers.py``).
+
+Parameters are plain dicts of tensors in the JAX package's layout: a
+projection is an ``(in, out)`` matrix applied as ``x @ W``. ``init_*``
+builds a dict with draws from an explicit ``torch.Generator`` on the
+device named; the other functions consume one. Attention over long
+sequences is the JAX package's online-softmax scan over KV chunks, in torch
+ops with ``torch.utils.checkpoint`` for ``jax.checkpoint``, so the (S x S)
+score matrix is never materialized. It is no Pallas kernel in the JAX
+package, and the port keeps its algorithm (not
+``scaled_dot_product_attention``) so the two agree chunk by chunk.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from .pshard import shard
+
+# -- initializers ---------------------------------------------------------------
+
+
+def _dense_init(gen: torch.Generator, shape, dtype, device,
+                scale: float = 1.0):
+    std = scale / np.sqrt(shape[0])
+    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return (x * float(std)).to(dtype)
+
+
+def _remat(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+# -- norms ----------------------------------------------------------------------
+
+
+def init_norm(cfg, dtype, device):
+    p = {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    return p
+
+
+def apply_norm(p, x, kind: str, eps: float = 1e-6):
+    xf = x.float()
+    if kind == "rmsnorm":
+        xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (xf * p["scale"].float()).to(x.dtype)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+# -- rotary embeddings -----------------------------------------------------------
+
+
+def rope_freqs(hd: int, theta: float, device=None):
+    e = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    return 1.0 / torch.pow(theta, e)      # float32, theta rounded to it
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: (..., S) int."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    ang = positions[..., None].float() * freqs               # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- attention -------------------------------------------------------------------
+
+
+def init_attention(gen, cfg, dtype, device):
+    D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    p = {
+        "wq": _dense_init(gen, (D, H * hd), dtype, device),
+        "wk": _dense_init(gen, (D, KV * hd), dtype, device),
+        "wv": _dense_init(gen, (D, KV * hd), dtype, device),
+        "wo": _dense_init(gen, (H * hd, D), dtype, device),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
+            p[name] = torch.zeros((width,), dtype=dtype, device=device)
+    return p
+
+
+def _qkv(p, x, cfg, positions, rope: bool = True):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, "dp", None, "model", None)
+    k = shard(k, "dp", None, "model", None)
+    v = shard(v, "dp", None, "model", None)
+    return q, k, v
+
+
+def _pick_chunk(S: int, target: int) -> int:
+    """Largest divisor of S that is <= target."""
+    c = min(target, S)
+    while S % c:
+        c -= 1
+    return max(c, 1)
+
+
+class SoftmaxState(NamedTuple):
+    m: torch.Tensor    # running max        (B, KV, G, Sq)
+    l: torch.Tensor    # running denom      (B, KV, G, Sq)
+    acc: torch.Tensor  # running numerator  (B, KV, G, Sq, hd)
+
+
+def _online_softmax_step(state: SoftmaxState, logits, vc):
+    """logits: (B, KV, G, Sq, Sk); vc: (B, Sk, KV, hd)."""
+    m_new = torch.maximum(state.m, logits.amax(-1))
+    scale = torch.exp(state.m - m_new)
+    probs = torch.exp(logits - m_new[..., None])
+    l_new = state.l * scale + probs.sum(-1)
+    acc = state.acc * scale[..., None] + torch.einsum(
+        "bkgqs,bskd->bkgqd", probs, vc.to(probs.dtype))
+    return SoftmaxState(m_new, l_new, acc)
+
+
+# Python scalars where JAX has constants: a scalar tensor made on the card
+# from the host would be a copy that waits for the card
+_NEG = -1e30
+
+
+def _attend_chunks(qc, qp, ks, vs, kps, scale, causal, out_dtype):
+    """One q chunk against a sequence of kv chunks: the online-softmax scan.
+    qc: (B, q_chunk, KV, G, hd); qp: (q_chunk,) absolute positions."""
+    B, qn, KV, G, hd = qc.shape
+    state = SoftmaxState(
+        m=torch.full((B, KV, G, qn), -math.inf, dtype=torch.float32,
+                     device=qc.device),
+        l=torch.zeros((B, KV, G, qn), dtype=torch.float32, device=qc.device),
+        acc=torch.zeros((B, KV, G, qn, hd), dtype=torch.float32,
+                        device=qc.device))
+    qf = qc.float()
+    for kc, vc, kp in zip(ks, vs, kps):
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qf, kc.float()) * scale
+        if causal:
+            mask = qp[:, None] >= kp[None, :]
+            logits = torch.where(mask[None, None, None], logits, _NEG)
+        state = _online_softmax_step(state, logits, vc)
+    out = state.acc / torch.clamp(state.l, min=1e-30)[..., None]
+    return out.to(out_dtype)  # (B, KV, G, q_chunk, hd)
+
+
+def chunked_attention(q, k, v, *, causal: bool, k_chunk: int = 512,
+                      q_chunk: int = 512, q_offset: int = 0):
+    """Online-softmax attention; never materializes (S x S).
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd). GQA via head grouping.
+    ``q_offset`` is the absolute position of q[0] (prefill continuation).
+    """
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = float(1.0 / np.sqrt(hd))
+    q_chunk = _pick_chunk(Sq, q_chunk)
+    k_chunk = _pick_chunk(Sk, k_chunk)
+    nq = Sq // q_chunk
+    nk = Sk // k_chunk
+
+    qr = q.reshape(B, nq, q_chunk, KV, G, hd)
+    kr = k.reshape(B, nk, k_chunk, KV, hd).unbind(1)
+    vr = v.reshape(B, nk, k_chunk, KV, hd).unbind(1)
+    q_pos = (q_offset + torch.arange(Sq, device=q.device)).reshape(nq,
+                                                                   q_chunk)
+    k_pos = torch.arange(Sk, device=q.device).reshape(nk, k_chunk).unbind(0)
+
+    # Triangular causal schedule: q-chunk i only visits kv-chunks 0..i
+    # (the JAX package's condition, layers.py:188-189); otherwise the
+    # rectangle over every kv chunk, masked when causal. Each q chunk is
+    # rematerialized in the backward pass.
+    triangular = causal and Sq == Sk and q_chunk == k_chunk and \
+        q_offset == 0 and nq <= 64
+
+    def one_q_chunk(qi, qc):
+        hi = qi + 1 if triangular else nk
+        return _attend_chunks(qc, q_pos[qi], kr[:hi], vr[:hi], k_pos[:hi],
+                              scale, causal, q.dtype)
+
+    outs = [_remat(one_q_chunk, qi, qr[:, qi]) for qi in range(nq)]
+    out = torch.stack(outs, dim=1)        # (B, nq, KV, G, q_chunk, hd)
+    out = out.permute(0, 1, 4, 2, 3, 5)   # (B, nq, q_chunk, KV, G, hd)
+    return out.reshape(B, Sq, H * hd)
+
+
+def attention_block(p, x, cfg, positions, *, causal=True, kv_override=None,
+                    rope=True):
+    """Self-attention (or cross-attention when kv_override=(k, v) given)."""
+    q, k, v = _qkv(p, x, cfg, positions, rope=rope)
+    if kv_override is not None:
+        k, v = kv_override
+    out = chunked_attention(q, k, v, causal=causal)
+    out = shard(out, "dp", None, "model")
+    return out.to(x.dtype) @ p["wo"]
+
+
+def cross_kv(p, ctx, cfg):
+    """K/V projections of a context sequence (encoder out / image tokens)."""
+    B, T, _ = ctx.shape
+    KV, hd = cfg.num_kv_heads, cfg.hd
+    k = (ctx @ p["wk"]).reshape(B, T, KV, hd)
+    v = (ctx @ p["wv"]).reshape(B, T, KV, hd)
+    if "bk" in p:
+        k = k + p["bk"].reshape(KV, hd)
+        v = v + p["bv"].reshape(KV, hd)
+    return k, v
+
+
+# -- decode-step attention -------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor     # (B, S_max, KV, hd); model dtype or int8
+    v: torch.Tensor     # (B, S_max, KV, hd)
+
+
+_KV_SCALE = 16.0   # static symmetric scale for int8 KV quantization
+
+
+def _kv_quant(x, dtype):
+    if dtype != torch.int8:
+        return x.to(dtype)
+    return torch.clamp(torch.round(x.float() * _KV_SCALE),
+                       -127, 127).to(torch.int8)
+
+
+def _kv_dequant(x, dtype):
+    if x.dtype != torch.int8:
+        return x.to(dtype)
+    return (x.float() / _KV_SCALE).to(dtype)
+
+
+def decode_attention(p, x, cfg, cache: KVCache, cache_len, *, rope=True):
+    """One-token decode against a KV cache; returns (out, cache).
+
+    x: (B, 1, D); cache_len: int -- number of valid cache positions, one
+    for the whole batch. The new key and value are written into ``cache``
+    in place at position ``cache_len`` (clamped into the cache, as
+    ``dynamic_update_slice`` clamps), and the same cache is returned.
+    """
+    B = x.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    G = H // KV
+    cache_len = int(cache_len)
+    pos = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(p, x, cfg, pos, rope=rope)
+    S = cache.k.shape[1]
+    at = min(max(cache_len, 0), S - 1)
+    cache.k[:, at] = _kv_quant(k[:, 0], cache.k.dtype)
+    cache.v[:, at] = _kv_quant(v[:, 0], cache.v.dtype)
+    qh = q.reshape(B, KV, G, hd)
+    logits = torch.einsum("bkgd,bskd->bkgs", qh.float(),
+                          _kv_dequant(cache.k, torch.float32)
+                          ) * float(1.0 / np.sqrt(hd))
+    valid = torch.arange(S, device=x.device) <= cache_len
+    logits = torch.where(valid[None, None, None, :], logits, _NEG)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs,
+                       _kv_dequant(cache.v, torch.float32))
+    out = out.reshape(B, 1, H * hd).to(x.dtype)
+    return out @ p["wo"], cache
+
+
+def decode_cross_attention(p, x, cfg, ckv: KVCache):
+    """One-token cross-attention against a fixed (precomputed) context KV."""
+    B = x.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    G = H // KV
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    qh = q.reshape(B, KV, G, hd)
+    logits = torch.einsum("bkgd,bskd->bkgs", qh.float(),
+                          ckv.k.float()) * float(1.0 / np.sqrt(hd))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, ckv.v.float())
+    return out.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"]
+
+
+# -- MLP -------------------------------------------------------------------------
+
+
+def init_mlp(gen, cfg, dtype, device, d_ff: int = 0):
+    D = cfg.d_model
+    Fd = d_ff or cfg.d_ff
+    if cfg.act == "swiglu":
+        return {
+            "wg": _dense_init(gen, (D, Fd), dtype, device),
+            "wu": _dense_init(gen, (D, Fd), dtype, device),
+            "wd": _dense_init(gen, (Fd, D), dtype, device),
+        }
+    return {
+        "wi": _dense_init(gen, (D, Fd), dtype, device),
+        "wo": _dense_init(gen, (Fd, D), dtype, device),
+    }
+
+
+def apply_mlp(p, x, act: str):
+    if act == "swiglu":
+        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+
+
+# -- embeddings & loss -----------------------------------------------------------
+
+
+def init_embeddings(gen, cfg, dtype, device):
+    p = {"tok": _dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
+                            device, scale=np.sqrt(cfg.d_model))}
+    if not cfg.tied_embeddings:
+        p["head"] = _dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype,
+                                device)
+    return p
+
+
+def embed(p, tokens):
+    return p["tok"][tokens.long()]
+
+
+def unembed_logits(p, h):
+    if "head" in p:
+        return h @ p["head"]
+    return h @ p["tok"].T
+
+
+def chunked_ce_loss(p_emb, h, labels, *, chunk: int = 512):
+    """Mean cross-entropy without materializing (B, S, V) logits.
+
+    h: (B, S, D); labels: (B, S) int (-1 = ignore). Loops over S chunks,
+    each rematerialized in the backward pass; per-chunk logits are
+    (B, chunk, V).
+    """
+    B, S, D = h.shape
+    chunk = min(chunk, S)
+    assert S % chunk == 0
+    n = S // chunk
+    hs = h.reshape(B, n, chunk, D).unbind(1)
+    ls = labels.reshape(B, n, chunk).long().unbind(1)
+
+    def chunk_ce(hc, lc):
+        logits = unembed_logits(p_emb, hc).float()
+        logits = shard(logits, "dp", None, "model")
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1,
+                              torch.clamp(lc, min=0)[..., None])[..., 0]
+        mask = (lc >= 0).float()
+        return ((lse - picked) * mask).sum(), mask.sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for hc, lc in zip(hs, ls):
+        t, c = _remat(chunk_ce, hc, lc)
+        tot = tot + t
+        cnt = cnt + c
+    return tot / torch.clamp(cnt, min=1.0)

@@ -98,3 +98,26 @@ def test_serve_gp_traces(capsys, tmp_path):
         == ticks
     assert re.search(rf"serve spans over {ticks} ticks", out)
     assert any(e["ph"] == "C" and e["name"] == "occupancy" for e in evs)
+
+
+def test_train_lm_resumes(capsys, tmp_path):
+    """examples/train_lm_torch.py at smoke size, then again with more steps
+    on the same checkpoint directory: the second run resumes."""
+    args = ["--steps", "4", "--batch", "2", "--seq", "32", "--ckpt-dir",
+            str(tmp_path / "ck"), "--device", "cpu"]
+    mod = _example("train_lm_torch")
+    mod.main(args)
+    assert "status=done step=4" in capsys.readouterr().out
+    mod.main(args[:1] + ["6"] + args[2:])
+    assert "status=done step=6" in capsys.readouterr().out
+    events = [json.loads(x)["event"] for x in
+              (tmp_path / "ck" / "metrics.jsonl").read_text().splitlines()]
+    assert "resumed" in events
+
+
+def test_serve_lm(capsys):
+    _example("serve_lm_torch").main(["--requests", "5", "--slots", "2",
+                                     "--max-new", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "served 5 requests / 15 tokens" in out
+    assert len(re.findall(r"^  request \d: \[", out, re.M)) == 5

@@ -41,3 +41,63 @@ def test_every_jax_core_name_is_ported_or_listed():
                if n not in TO_PORT and n not in JAX_ONLY
                and not (hasattr(port_core, n) and n in port_core.__all__)]
     assert missing == [], f"repro_torch.core does not export {missing}"
+
+
+# -- the LM half: models, optim, train, data, checkpoint, configs ------------------
+
+LM_PACKAGES = ("models", "optim", "train", "data", "checkpoint", "configs")
+# JAX modules of those packages the port does not have yet, and public
+# names of ported modules it lacks: the MoE / SSM families and the
+# hybrid, audio and VLM branches (ROADMAP Queue 1 item 10), and
+# ``make_mesh_hook``, which goes with the model half of
+# ``launch/sharding.py`` on a device mesh.
+LM_DEFERRED_MODULES = {"models/moe.py", "models/ssm.py"}
+LM_DEFERRED_NAMES = {"models/pshard.py": {"make_mesh_hook"},
+                     "models/transformer.py": {"apply_encoder",
+                                               "DecodeState"}}
+
+
+def _public_names(path: Path) -> list[str]:
+    """Names a module defines at top level (a package's ``__init__``: also
+    the names it imports), not private ones."""
+    names = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom) and path.name == "__init__.py":
+            names += [a.asname or a.name for a in node.names
+                      if a.name != "annotations"]
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+    return [n for n in names if not n.startswith("_")]
+
+
+def test_lm_packages_export_jax_s_names():
+    import importlib
+    for pkg in LM_PACKAGES:
+        port = importlib.import_module(f"repro_torch.{pkg}")
+        names = _public_names(ROOT / "src" / "repro" / pkg / "__init__.py")
+        assert names, pkg
+        missing = [n for n in names if not hasattr(port, n)]
+        assert missing == [], f"repro_torch.{pkg} lacks {missing}"
+
+
+def test_lm_modules_are_ported_or_listed():
+    import importlib
+    src = ROOT / "src" / "repro"
+    for pkg in LM_PACKAGES:
+        for path in sorted((src / pkg).glob("*.py")):
+            rel = f"{pkg}/{path.name}"
+            port_path = ROOT / "src" / "repro_torch" / pkg / path.name
+            if rel in LM_DEFERRED_MODULES:
+                assert not port_path.exists(), f"{rel} is ported: unlist it"
+                continue
+            assert port_path.exists(), f"repro_torch/{rel} is missing"
+            mod = importlib.import_module(
+                f"repro_torch.{pkg}.{path.stem}".replace(".__init__", ""))
+            deferred = LM_DEFERRED_NAMES.get(rel, set())
+            for name in _public_names(path):
+                if name in deferred:
+                    assert not hasattr(mod, name), f"{rel}:{name} unlist it"
+                else:
+                    assert hasattr(mod, name), f"repro_torch/{rel}: {name}"
