@@ -117,6 +117,21 @@ before it and read just after:
     Cholesky of the curvature factor launches the three sampling kernels),
     gated on beating AdamW, on 0.2 x its first loss and on each refresh's
     factor residual (100 eps_tlr).
+14. the other model families at their published widths
+    (``families_phase``): mamba2-130m (8 x 1024 tokens a step),
+    whisper-large-v3 (4 x 1024 and 256 frames) and granite-moe-3b-a800m
+    (4 x 1024) at full depth, each 4 AdamW steps (bf16, remat; finite
+    losses, the last below the first), mamba2's also as 2 steps, a
+    checkpoint and 2 resumed through ``Trainer.run`` (its losses the
+    straight run's bit for bit), each then served as path 13 serves;
+    jamba-v0.1-52b, llama-3.2-vision-90b and llama4-maverick-400b-a17b at
+    one pattern repeat: a prefill of 2 x 1024 tokens (1600 patches for
+    the VLM) and 8 decode ticks. In every family the decode step fed a
+    16-token prompt ends within 5e-2 of ``prefill``'s logits (cross caches
+    filled from the context; MoE at a capacity that drops nothing, and in
+    float32 on the same weights where bf16 routing differs between the
+    two); one granite and one llama4 MoE layer match a dense top-k oracle.
+    No kernel of the port is on this path.
 
 Then it holds each kernel against its plain PyTorch version on the card
 (f64, f32 and bf16; f64 and f32 for the QR and SVD) at the paths' shapes
@@ -129,7 +144,9 @@ spectrum whose unsorted factors must match the plain version's rotations,
 the QR contract), checks that each gate rejects a planted fault and that
 two kernel calls agree bit for bit, and checks a small end-to-end run on
 the card against the same run on the CPU (flat and ranked; and both
-fractional-diffusion preconditioners at n = 512, tile 64). The kernels
+fractional-diffusion preconditioners at n = 512, tile 64; and each of
+path 14's six families at smoke size in float32: loss, gradients, prefill
+and decode logits). The kernels
 are also held at the rank-bucket widths of ranked batching (width 1 to
 128, zero-tile count padding), at each kernel's widest bucket on its
 ranked path, at each kernel's widest shape on the two
@@ -211,6 +228,28 @@ LM_STEPS, LM_SPLIT, LM_COMPRESS_STEPS = 8, 4, 2
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 4, 256, 8, 16
 KFAC_N, KFAC_M, KFAC_SAMPLES, KFAC_STEPS = 2816, 1024, 4096, 30
 KFAC_TILE, KFAC_BS = 32, 8
+# The other families (path 14), at their published widths: FAM_TRAIN at
+# full depth too, (arch, batch, AdamW learning rate) trained FAM_STEPS
+# steps of batch x FAM_SEQ tokens (bf16, remat; the pure-SSM model also
+# FAM_SPLIT steps resumed to FAM_STEPS through Trainer.run) and served as
+# path 13 serves (whisper at a lower rate: from its initial state, 4 steps
+# at AdamW's default 3e-4, or at 1e-4, end above its first loss;
+# ``tools/lm_profile.py --steps-at`` prints them);
+# FAM_REPEAT at one pattern repeat (num_layers = the pattern's length): a
+# prefill of FAM_PREFILL (batch, tokens), then FAM_TICKS decode ticks. Each
+# decode step is held against prefill on a FAM_PROMPT-token prompt; the MoE
+# layers of FAM_ORACLE against a dense top-k oracle on (tokens, dtype, tol).
+FAM_TRAIN = (("mamba2-130m", 8, 3e-4), ("whisper-large-v3", 4, 5e-5),
+             ("granite-moe-3b-a800m", 4, 3e-4))
+FAM_STEPS, FAM_SPLIT, FAM_SEQ = 4, 2, 1024
+FAM_REPEAT = ("jamba-v0.1-52b", "llama-3.2-vision-90b",
+              "llama4-maverick-400b-a17b")
+FAM_PREFILL, FAM_TICKS, FAM_PROMPT = (2, 1024), 8, 16
+FAM_ORACLE = (("granite-moe-3b-a800m", 256, "float32", 1e-4),
+              ("llama4-maverick-400b-a17b", 512, "bfloat16", 2e-2))
+FAM_SMOKE = ("jamba_v0_1_52b", "whisper_large_v3",
+             "llama4_maverick_400b_a17b", "granite_moe_3b_a800m",
+             "mamba2_130m", "llama_3_2_vision_90b")
 # Kernel against plain version: max abs error <= TOL * max |plain output|
 # (the tolerances of tests/test_kernels.py, relative to the output's scale),
 # for every output of the kernel. small_svd is held at TOL_SCALE = 10 times
@@ -2809,26 +2848,19 @@ def lm_train_phase(cfg, work: Path, dev: str = "cuda") -> dict:
                      "D": stats_d}}
 
 
-def lm_serve_phase(cfg, params, dev: str = "cuda") -> dict:
-    """Path 13 (b): ``DecodeServer(slots=LM_SLOTS, max_len=LM_MAX_LEN)`` on
-    the trained parameters drains LM_REQUESTS greedy requests (prompts of
-    3 to LM_REQUESTS + 2 tokens) of LM_NEW tokens. Gates: every request
-    completes once with LM_NEW in-vocabulary tokens; a second server gives
-    the same tokens; the server's step, fed the longest prompt alone in
-    slot 0, ends on logits within 5e-2 (relative to their max; bf16) of
-    ``prefill``'s last-position logits for it, on the trained weights and
-    on freshly drawn ones. Logs tokens/s and ticks."""
+def serve_drain(label: str, cfg, params, dev: str = "cuda") -> dict:
+    """``DecodeServer(slots=LM_SLOTS, max_len=LM_MAX_LEN)`` drains
+    LM_REQUESTS greedy requests (prompts of 3 to LM_REQUESTS + 2 tokens) of
+    LM_NEW tokens. Gates: every request completes once with LM_NEW
+    in-vocabulary tokens; a second server gives the same tokens. Logs
+    tokens/s, ticks and ms a tick."""
     import numpy as np
-    import torch
-    from repro_torch.kernels import ops
-    from repro_torch.models import init_model, prefill
     from repro_torch.train import DecodeServer, Request
 
     V = cfg.vocab_size
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, V, size=3 + i).tolist()
                for i in range(LM_REQUESTS)]
-    ops.reset_launch_counts()
 
     def drain():
         srv = DecodeServer(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
@@ -2840,19 +2872,38 @@ def lm_serve_phase(cfg, params, dev: str = "cuda") -> dict:
 
     srv, toks, n_done, sec = drain()
     ticks = srv.ticks
+    del srv
     ntok = sum(len(t) for t in toks.values())
-    log(f"lm serve: {n_done} completions, {ntok} tokens in {sec:.3f} s "
-        f"({ntok / sec:.1f} tokens/s), {srv.ticks} ticks "
-        f"({1e3 * sec / srv.ticks:.2f} ms a tick), {LM_SLOTS} slots")
+    log(f"{label}: {n_done} completions, {ntok} tokens in {sec:.3f} s "
+        f"({ntok / sec:.1f} tokens/s), {ticks} ticks "
+        f"({1e3 * sec / ticks:.2f} ms a tick), {LM_SLOTS} slots")
     assert n_done == LM_REQUESTS and sorted(toks) == \
-        list(range(LM_REQUESTS)), "lm serve: a request did not complete once"
+        list(range(LM_REQUESTS)), f"{label}: a request did not complete once"
     for rid, t in toks.items():
         assert len(t) == LM_NEW and all(0 <= x < V for x in t), \
-            f"lm serve: request {rid} gave {t}"
+            f"{label}: request {rid} gave {t}"
     _, toks2, _, sec2 = drain()
-    log(f"lm serve: a second server in {sec2:.3f} s gives the same tokens: "
+    log(f"{label}: a second server in {sec2:.3f} s gives the same tokens: "
         f"{toks2 == toks}")
-    assert toks2 == toks, "lm serve: two servers differ"
+    assert toks2 == toks, f"{label}: two servers differ"
+    return {"tokens_per_s": ntok / sec, "ticks": ticks, "seconds": sec,
+            "prompts": prompts}
+
+
+def lm_serve_phase(cfg, params, dev: str = "cuda") -> dict:
+    """Path 13 (b): ``serve_drain`` on the trained parameters; then the
+    server's step, fed the longest prompt alone in slot 0, ends on logits
+    within 5e-2 (relative to their max; bf16) of ``prefill``'s
+    last-position logits for it, on the trained weights and on freshly
+    drawn ones."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_model, prefill
+    from repro_torch.train import DecodeServer
+
+    ops.reset_launch_counts()
+    drained = serve_drain("lm serve", cfg, params, dev)
+    prompts = drained["prompts"]
 
     # the decode step against prefill, on the trained weights and on fresh
     # ones (8 steps from a loss of 15 leave a near-constant prediction)
@@ -2877,8 +2928,8 @@ def lm_serve_phase(cfg, params, dev: str = "cuda") -> dict:
             f"({label} weights)"
         del srv, weights
     launches = ops.launch_counts()
-    return {"launches": launches, "tokens_per_s": ntok / sec,
-            "ticks": ticks, "seconds": sec}
+    return {"launches": launches, "tokens_per_s": drained["tokens_per_s"],
+            "ticks": drained["ticks"], "seconds": drained["seconds"]}
 
 
 def kfac_phase(dev: str = "cuda") -> dict:
@@ -3184,6 +3235,494 @@ def mesh_phase(op, Z, KZ, y) -> dict:
     return out
 
 
+# -- path 14: the MoE, SSM, hybrid, audio and VLM families -------------------------
+
+
+def gate_config(cfg):
+    """``cfg`` with a capacity that drops nothing (C >= the group size):
+    decode and prefill group tokens differently, so only without drops do
+    they compute the same function (tests/test_model_units.py's
+    ``cf=10``)."""
+    import dataclasses
+    if cfg.moe is None:
+        return cfg
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=max(10.0, m.num_experts / m.top_k)))
+
+
+def context_input(cfg, batch: int, seed: int, dev: str,
+                  seq: int = LM_MAX_LEN) -> dict:
+    """The family's context for ``seq`` tokens as ``materialize_inputs``
+    draws it (0.02 x a standard normal, from ``seed``): ``frames`` (audio,
+    ``_enc_len(cfg, seq)``; at LM_MAX_LEN the server's cross caches'
+    length) or ``patches`` (VLM, ``frontend_tokens``); nothing for the
+    other families."""
+    import numpy as np
+    import torch
+    from repro_torch.models.api import _enc_len
+    if cfg.family == "audio":
+        key, T = "frames", _enc_len(cfg, seq)
+    elif cfg.frontend_tokens:
+        key, T = "patches", cfg.frontend_tokens
+    else:
+        return {}
+    x = np.random.default_rng(seed).standard_normal((batch, T, cfg.d_model))
+    return {key: torch.as_tensor(x * 0.02).to(device=dev, dtype=cfg.tdtype)}
+
+
+def fill_context_caches(cfg, params, caches, ctx_in: dict) -> None:
+    """Write the cross-attention K/V of a batch's context into the cross
+    caches (JAX's server leaves them zero, and ``prefill`` reads the
+    context): ``cross_kv`` of the encoder's output over the frames into
+    each decoder layer's ``cross`` cache (audio), or of the patches into
+    each ``cross`` mixer's (VLM), slot b from context row b."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import apply_encoder
+    if not ctx_in:
+        return
+    pat, R = cfg.layer_pattern(), cfg.num_pattern_repeats
+    with torch.no_grad():
+        if cfg.family == "audio":
+            ctx = apply_encoder(params, ctx_in["frames"], cfg)
+            where = [(len(pat) + i, i, "cross") for i in range(len(pat))]
+        else:
+            ctx = ctx_in["patches"]
+            where = [(i, i, "mixer") for i, (m, _) in enumerate(pat)
+                     if m == "cross"]
+        n = ctx.shape[0]
+        for c, i, name in where:
+            for r in range(R):
+                k, v = L.cross_kv({key: x[r] for key, x in
+                                   params["blocks"][i][name].items()},
+                                  ctx, cfg)
+                caches[c].k[r, :n] = k
+                caches[c].v[r, :n] = v
+
+
+@contextlib.contextmanager
+def moe_log():
+    """The routing of each ``apply_moe`` call, in call order: (its expert
+    indices (B, S, K) on the host, how many (token, slot) pairs its
+    capacity drops), from ``moe._route`` on the same input."""
+    from repro_torch.models import moe
+    inner, calls = moe.apply_moe, []
+
+    def logged(p, x, cfg):
+        B, S, D = x.shape
+        gs = min(cfg.moe.group_size, B * S)
+        _, _, idx, _, pos, C = moe._route(p, x.reshape(B * S // gs, gs, D),
+                                          cfg)
+        calls.append((idx.reshape(B, S, -1).cpu(), int((pos >= C).sum())))
+        return inner(p, x, cfg)
+
+    moe.apply_moe = logged
+    try:
+        yield calls
+    finally:
+        moe.apply_moe = inner
+
+
+def to_float32_in_place(tree) -> None:
+    """Replace every leaf of a parameter tree (dicts and lists) by its
+    float32 copy, the largest first, each original dropped as soon as its
+    copy exists: the peak is the tree in float32 plus one leaf."""
+    slots, todo = [], [tree]
+    while todo:
+        t = todo.pop()
+        for k, v in (t.items() if isinstance(t, dict) else enumerate(t)):
+            if isinstance(v, (dict, list)):
+                todo.append(v)
+            else:
+                slots.append((v.numel(), t, k))
+    for _, t, k in sorted(slots, key=lambda s: -s[0]):
+        t[k] = t[k].float()
+
+
+def decode_against_prefill(label: str, cfg, params, dev: str) -> float:
+    """The last-position logits of ``serve_step`` fed a FAM_PROMPT-token
+    prompt token by token (slot 0 of LM_SLOTS, its cross caches filled from
+    the prompt's context) against ``prefill``'s for it, both under
+    ``gate_config``. Gate: max relative difference <= 5e-2 (path 13's;
+    bf16). A MoE layer's top-k is a step function of bf16-rounded router
+    logits (ties are exact in bf16), so where a decode step's experts
+    differ from prefill's for the same token anywhere, the bf16 numbers are
+    logged and the gate holds the same weights cast to float32 in place
+    (``to_float32_in_place``: ``params`` is float32 afterwards). Logs the
+    slots the same prefill drops at the published capacity."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import init_decode_caches, prefill, serve_step
+    from repro_torch.models.api import _enc_len
+    prompt = np.random.default_rng(7).integers(1, cfg.vocab_size,
+                                               FAM_PROMPT).tolist()
+
+    def run(c):
+        """(max rel diff, argmaxes, (layer, token)s routed otherwise, MoE
+        layers)."""
+        ctx_in = {k: v.to(c.tdtype) for k, v in
+                  context_input(cfg, 1, 7, dev).items()}
+        caches = init_decode_caches(c, LM_SLOTS, LM_MAX_LEN,
+                                    ctx_len=_enc_len(c, LM_MAX_LEN),
+                                    device=dev)
+        fill_context_caches(c, params, caches, ctx_in)
+        tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=dev)
+        with moe_log() as dec:
+            for pos, t in enumerate(prompt):
+                tok[0, 0] = t
+                logits, caches = serve_step(params, caches, tok, pos, c)
+        del caches
+        batch = {"tokens": torch.tensor([prompt], dtype=torch.int32,
+                                        device=dev), **ctx_in}
+        with moe_log() as pre:
+            want = prefill(params, batch, c)[0, 0].float()
+        got = logits[0, 0].float()
+        err = float((got - want).abs().max() / want.abs().max())
+        n = len(pre)
+        differ = sum(set(dec[t * n + i][0][0, 0].tolist()) !=
+                     set(pre[i][0][0, t].tolist())
+                     for t in range(len(prompt)) for i in range(n))
+        return err, (int(got.argmax()), int(want.argmax())), differ, n
+
+    gcfg = gate_config(cfg)
+    err, amax, differ, n = run(gcfg)
+    note = ""
+    if cfg.moe is not None:
+        with moe_log() as pub:
+            prefill(params, {"tokens": torch.tensor(
+                [prompt], dtype=torch.int32, device=dev),
+                **context_input(cfg, 1, 7, dev)}, cfg)
+        note = (f" (capacity factor {gcfg.moe.capacity_factor:g}; at the "
+                f"published {cfg.moe.capacity_factor:g} that prefill drops "
+                f"{sum(d for _, d in pub)} of "
+                f"{FAM_PROMPT * cfg.moe.top_k * n} slots in {n} MoE layers)"
+                f"; decode and prefill route {differ} of {FAM_PROMPT * n} "
+                f"(layer, token) pairs to other experts")
+    filled = " (cross caches filled)" if cfg.family in ("audio", "vlm") \
+        else ""
+    log(f"{label}: decode step logits after a {FAM_PROMPT}-token prompt "
+        f"against prefill's{filled} in {cfg.dtype}: max rel diff "
+        f"{err:.3e}, argmax {amax[0]} / {amax[1]}{note}")
+    if differ:
+        to_float32_in_place(params)
+        torch.cuda.empty_cache()
+        err, amax, differ, _ = run(dataclasses.replace(gcfg,
+                                                       dtype="float32"))
+        log(f"{label}: the same weights in float32: max rel diff "
+            f"{err:.3e}, argmax {amax[0]} / {amax[1]}, {differ} pairs "
+            f"routed otherwise")
+    log(f"{label}: decode against prefill {err:.3e} (gate 5e-2)")
+    assert err <= 5e-2, f"{label}: decode logits far from prefill's"
+    return err
+
+
+def fam_steps(cfg, tr, dev: str):
+    """FAM_STEPS steps of the trainer's own step (``fwd_bwd`` then
+    ``apply``, as ``Trainer.run``, with no checkpoint) from its initial
+    state, the family's context (frames / patches) beside the synthetic
+    tokens: (losses, step seconds, peak bytes, parameters)."""
+    import torch
+    from repro_torch.models import init_model
+    from repro_torch.optim import adamw_init
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(tr.tcfg.seed, cfg, device=dev)
+    ostate = adamw_init(params, tr.tcfg.optimizer)
+    losses, dts = [], []
+    for step in range(FAM_STEPS):
+        def one():
+            nonlocal params, ostate
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in tr.data.batch_at(step).items()}
+            batch.update(context_input(cfg, tr.tcfg.batch, step, dev,
+                                       tr.tcfg.seq_len))
+            loss, grads, _ = tr.fwd_bwd(params, batch)
+            params, ostate = tr.apply(grads, ostate, params)
+            return float(loss)
+        loss, sec = sync_time(one)
+        losses.append(loss)
+        dts.append(sec)
+    peak = torch.cuda.max_memory_allocated()
+    return losses, dts, peak, params
+
+
+def fam_train_phase(cfg, batch: int, lr: float, work: Path,
+                    dev: str = "cuda"):
+    """Path 14 (a), training: FAM_STEPS AdamW steps (learning rate ``lr``)
+    of ``batch`` x FAM_SEQ tokens (``fam_steps``). Gates: finite losses, the last below the
+    first. The pure-SSM model also runs ``Trainer.run`` for FAM_SPLIT steps
+    (its checkpoint) and again to FAM_STEPS, resumed: those losses equal
+    the straight run's bit for bit. Logs step seconds, tokens/s, peak
+    memory and the checkpoint's bytes. Returns (parameters, numbers)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+    label = f"fam {cfg.name}"
+    tcfg = TrainConfig(steps=FAM_STEPS, batch=batch, seq_len=FAM_SEQ,
+                       ckpt_dir=str(work / cfg.name), save_every=10**9,
+                       log_every=1, keep=1, seed=0,
+                       optimizer=AdamWConfig(lr=lr))
+    tr = Trainer(cfg, tcfg, device=dev)
+    losses, dts, peak, params = fam_steps(cfg, tr, dev)
+    tok_s = batch * FAM_SEQ / float(np.median(dts[1:]))
+    ctx = {k: tuple(v.shape) for k, v in
+           context_input(cfg, batch, 0, "meta", FAM_SEQ).items()}
+    log(f"{label} train: {FAM_STEPS} steps of {batch} x {FAM_SEQ} tokens"
+        f" at learning rate {lr:g}"
+        f"{' with ' + str(ctx) if ctx else ''}; losses {losses}; step "
+        f"seconds {[round(x, 3) for x in dts]}; {tok_s:.0f} tokens/s "
+        f"(median step after the first); peak {peak / 2**30:.2f} GiB")
+    assert all(math.isfinite(x) for x in losses), \
+        f"{label}: a loss is not finite"
+    assert losses[-1] < losses[0], \
+        f"{label}: loss {losses[0]} -> {losses[-1]}"
+    out = {"losses": losses, "step_seconds": dts, "tokens_per_s": tok_s,
+           "peak": peak}
+    if cfg.family == "ssm":
+        runs = []
+        for steps in (FAM_SPLIT, FAM_STEPS):
+            t = Trainer(cfg, dataclasses.replace(tcfg, steps=steps),
+                        device=dev)
+            try:
+                res, sec = sync_time(t.run)
+            finally:
+                t.close()
+            runs.append((t.resumed_from, res["losses"], sec,
+                         dir_bytes(work / cfg.name)))
+            del res
+        resumed = runs[0][1] + runs[1][1]
+        log(f"{label} resume: Trainer.run for {FAM_SPLIT} steps in "
+            f"{runs[0][2]:.2f} s (a {runs[0][3]}-byte checkpoint), then "
+            f"resumed from step {runs[1][0]} to {FAM_STEPS} in "
+            f"{runs[1][2]:.2f} s: losses {resumed}, the straight run's bit "
+            f"for bit: {resumed == losses}")
+        assert runs[1][0] == FAM_SPLIT, f"{label}: resumed from {runs[1][0]}"
+        assert resumed == losses, \
+            f"{label}: the resumed losses differ from the straight run's"
+        out["checkpoint_bytes"] = runs[0][3]
+        torch.cuda.empty_cache()
+    return params, out
+
+
+def fam_repeat_phase(arch: str, dev: str = "cuda", smoke: bool = False
+                     ) -> dict:
+    """Path 14 (b): ``arch`` at its published width and one pattern repeat
+    (``num_layers`` = the pattern's length): a prefill of FAM_PREFILL
+    tokens (with the family's context), then FAM_TICKS greedy decode ticks
+    of that batch (cross caches filled), then ``decode_against_prefill``.
+    Gates: finite logits. Logs seconds, peak memory and the prefill's MoE
+    drops."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import (init_decode_caches, init_model, prefill,
+                                    serve_step)
+    from repro_torch.models.api import _enc_len
+    from repro_torch.tree import leaves
+    full = get_config(arch, smoke=smoke)
+    cfg = dataclasses.replace(full, num_layers=len(full.layer_pattern()))
+    label = f"fam {cfg.name} x1"
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = sync_time(lambda: init_model(0, cfg, device=dev))
+    B, S = FAM_PREFILL
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(1, cfg.vocab_size, (B, S)),
+                                       dtype=torch.int32, device=dev),
+             **context_input(cfg, B, 0, dev)}
+    with moe_log() as calls:
+        logits, t_prefill = sync_time(lambda: prefill(params, batch, cfg))
+    dropped = [d for _, d in calls]
+    assert torch.isfinite(logits).all(), f"{label}: prefill not finite"
+    caches = init_decode_caches(cfg, B, LM_MAX_LEN,
+                                ctx_len=_enc_len(cfg, LM_MAX_LEN), device=dev)
+    fill_context_caches(cfg, params, caches, {
+        k: v for k, v in batch.items() if k != "tokens"})
+    tok, ticks = batch["tokens"][:, :1], []
+    for t in range(FAM_TICKS):
+        (out, caches), sec = sync_time(
+            lambda: serve_step(params, caches, tok, t, cfg))
+        assert torch.isfinite(out).all(), f"{label}: tick {t} not finite"
+        tok = out[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+        ticks.append(sec)
+    del caches
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(x.numel() for x in leaves(params))
+    log(f"{label}: layers {cfg.num_layers} of {full.num_layers} "
+        f"{cfg.layer_pattern()}, d={cfg.d_model}, {n} parameters "
+        f"({full.param_count()} at full depth); init {t_init:.2f} s; "
+        f"prefill {B} x {S} tokens in {t_prefill:.3f} s "
+        f"({B * S / t_prefill:.0f} tokens/s)"
+        f"{'; MoE drops per layer ' + str(dropped) if dropped else ''}; "
+        f"{FAM_TICKS} decode ticks of {B} in "
+        f"{[round(1e3 * x, 2) for x in ticks]} ms; peak "
+        f"{peak / 2**30:.2f} GiB")
+    err = decode_against_prefill(label, cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    return {"prefill_s": t_prefill, "tick_s": ticks, "peak": peak,
+            "drops": dropped, "decode_err": err}
+
+
+def moe_oracle_phase(dev: str = "cuda", smoke: bool = False) -> dict:
+    """One MoE layer of each FAM_ORACLE config at its published width on
+    the card (``init_moe`` from a seeded generator, the layer in ``dtype``,
+    capacity raised so nothing drops) against a per-token dense top-k
+    oracle in float32 on the same weights, inputs and routing (the layer's
+    own top-k): each token's experts run one by one, weighted by its gate,
+    plus the shared expert. Gate: max |y - oracle| <= tol x max |oracle|."""
+    import dataclasses
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    errs = {}
+    for arch, T, dtype, tol in FAM_ORACLE:
+        cfg = gate_config(dataclasses.replace(get_config(arch, smoke=smoke),
+                                              dtype=dtype))
+        m, D = cfg.moe, cfg.d_model
+        T = min(T, m.group_size)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        p = moe.init_moe(gen, cfg, cfg.tdtype, dev)
+        x = torch.randn((1, T, D), generator=gen, device=dev).to(cfg.tdtype)
+        (y, aux), sec = sync_time(lambda: moe.apply_moe(p, x, cfg))
+        _, gv, gi, _, pos, C = moe._route(p, x, cfg)
+        assert bool((pos < C).all()), f"moe oracle {arch}: a slot dropped"
+        xf = x[0].float()
+
+        def expert(w, rows):
+            h = F.silu(xf[rows] @ w["wg"].float()) * (xf[rows] @ w["wu"].float())
+            return h @ w["wd"].float()
+
+        want = torch.zeros((T, D), dtype=torch.float32, device=dev)
+        for e in gi.unique().tolist():
+            w = {k: p[k][e] for k in ("wg", "wu", "wd")}
+            for k in range(m.top_k):
+                rows = (gi[0, :, k] == e).nonzero()[:, 0]
+                if rows.numel():
+                    want[rows] += gv[0, rows, k:k + 1] * expert(w, rows)
+        if m.shared_expert:
+            want += expert(p["shared"], slice(None))
+        err = float((y[0].float() - want).abs().max() / want.abs().max())
+        log(f"moe oracle {cfg.name}: one layer, {m.num_experts} experts "
+            f"top-{m.top_k}, d={D} ff={m.d_ff_expert}"
+            f"{', shared expert' if m.shared_expert else ''}, {T} tokens in "
+            f"{dtype} ({sec * 1e3:.2f} ms, {len(gi.unique())} experts used, "
+            f"capacity {C}, aux {float(aux):.4f}) against the float32 "
+            f"oracle: max rel diff {err:.3e} (gate {tol:g})")
+        assert err <= tol, f"moe oracle {arch}: {err} > {tol}"
+        errs[arch] = err
+        del p, x, y, want, w
+        torch.cuda.empty_cache()
+    return errs
+
+
+def families_phase(dev: str = "cuda", smoke: bool = False) -> dict:
+    """Path 14: FAM_TRAIN trained and served at full depth and width
+    (``fam_train_phase``, ``serve_drain``, ``decode_against_prefill``),
+    FAM_REPEAT at one pattern repeat (``fam_repeat_phase``), the MoE
+    oracle (``moe_oracle_phase``); ``smoke`` runs the smoke configs (a CPU
+    rehearsal). No kernel of the port is on this path: its launches are
+    logged (all 0)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    out = {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_fam_"))
+    try:
+        for arch, batch, lr in FAM_TRAIN:
+            t0 = time.perf_counter()
+            cfg = get_config(arch, smoke=smoke)
+            log(f"fam {cfg.name}: family {cfg.family}, layers "
+                f"{cfg.num_layers} {cfg.layer_pattern()}, d={cfg.d_model}, "
+                f"{cfg.param_count()} parameters "
+                f"({cfg.active_param_count()} active), {cfg.dtype}, remat "
+                f"{cfg.remat}")
+            params, train = fam_train_phase(cfg, batch, lr, work, dev)
+            serve = serve_drain(f"fam {cfg.name} serve", cfg, params, dev)
+            err = decode_against_prefill(f"fam {cfg.name} serve", cfg,
+                                         params, dev)
+            out[arch] = {"train": train, "serve": serve, "decode_err": err}
+            del params
+            torch.cuda.empty_cache()
+            log(f"fam {cfg.name}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for arch in FAM_REPEAT:
+        t0 = time.perf_counter()
+        out[arch] = fam_repeat_phase(arch, dev, smoke)
+        log(f"fam {arch} x1: {time.perf_counter() - t0:.1f} s")
+    out["oracle"] = moe_oracle_phase(dev, smoke)
+    launches = ops.launch_counts()
+    log(f"fam: launches {json.dumps(launches)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    out["launches"] = launches
+    return out
+
+
+def family_parity(dev: str = "cuda") -> None:
+    """The six families at smoke size in float32 on the card (``dev``) and
+    on the CPU, on the same weights and inputs (tokens, labels, frames /
+    patches): the loss (1e-5 relative), every gradient leaf (max |diff| <=
+    1e-4 x max |CPU|), prefill logits and 4 ``serve_step`` logits (1e-5 x
+    max |CPU|)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import (init_decode_caches, init_model, prefill,
+                                    serve_step, train_loss)
+    from repro_torch.models.api import _enc_len
+    from repro_torch.tree import leaves, tree_map, unflatten
+
+    def rel(a, b) -> float:
+        d = float((a.cpu().double() - b.double()).abs().max())
+        return d / max(float(b.double().abs().max()), 1e-30) if d else 0.0
+
+    for arch in FAM_SMOKE:
+        cfg = get_config(arch, smoke=True)
+        rng = np.random.default_rng(5)
+        nb = {"tokens": rng.integers(0, cfg.vocab_size, (2, 64)),
+              "labels": rng.integers(-1, cfg.vocab_size, (2, 64))}
+        base = {"cpu": init_model(0, cfg, device="cpu")}
+        base[dev] = tree_map(lambda x: x.to(dev), base["cpu"])
+        res = {}
+        for on, p in base.items():
+            batch = {k: torch.as_tensor(v, dtype=torch.int32, device=on)
+                     for k, v in nb.items()}
+            batch.update({k: v.to(on) for k, v in
+                          context_input(cfg, 2, 5, "cpu").items()})
+            live = [x.clone().requires_grad_(True) for x in leaves(p)]
+            loss = train_loss(unflatten(p, live), batch, cfg)
+            grads = torch.autograd.grad(loss, live)
+            inputs = {k: v for k, v in batch.items() if k != "labels"}
+            logits = [prefill(p, inputs, cfg)]
+            caches = init_decode_caches(cfg, 2, 16,
+                                        ctx_len=_enc_len(cfg, 16), device=on)
+            for t in range(4):
+                lg, caches = serve_step(p, caches, batch["tokens"][:, t:t + 1],
+                                        t, cfg)
+                logits.append(lg)
+            res[on] = (loss.detach(), grads, logits)
+        e_loss = rel(res[dev][0], res["cpu"][0])
+        e_grad = max(rel(a, b) for a, b in zip(res[dev][1], res["cpu"][1]))
+        e_logs = [rel(a, b) for a, b in zip(res[dev][2], res["cpu"][2])]
+        e_log = max(e_logs)
+        log(f"family parity {cfg.name} (smoke, float32): card against CPU: "
+            f"loss {e_loss:.2e}, gradients {e_grad:.2e} (max over "
+            f"{len(res['cpu'][1])} leaves), prefill and 4 decode logits "
+            f"{[f'{e:.2e}' for e in e_logs]}")
+        assert e_loss <= 1e-5 and e_grad <= 1e-4 and e_log <= 1e-5, \
+            f"family parity {arch}: card and CPU disagree"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=32768)
@@ -3214,6 +3753,8 @@ def main() -> int:
     elapsed("frac ns")
     lm = lm_phase()
     elapsed("the LM path")
+    fam = families_phase()
+    elapsed("the other families")
     # each kernel's widest rank bucket on the ranked paths that launch it:
     # the sampling kernels' on the ranked main path, QR's, SVD's and
     # batched_gemm's (at that call's live ranks) on the ranked
@@ -3260,6 +3801,7 @@ def main() -> int:
     results = check_kernels(main["ranks_a"], ranked=ranked)
     elapsed("the kernel checks")
     small_parity()
+    family_parity()
 
     other = "flat" if main["batching"] == "ranked" else "ranked"
     by_path = {"main": main["launches"],
@@ -3285,7 +3827,8 @@ def main() -> int:
                    "telemetry_right_ranked_lookahead",
                    "telemetry_right_flat", "mixed",
                    *(mesh_key(*run) for run in MESH_RUNS))},
-               "kfac": lm["kfac"]["launches"]}
+               "kfac": lm["kfac"]["launches"],
+               "families": fam["launches"]}
     log(f"main path batching: auto -> {main['batching']} (main_{other}: "
         f"the same operator factored with batching={other})")
     kernels = []

@@ -1,6 +1,10 @@
 """Serving launcher CLI: continuous-batching decode server (the port's
 ``repro/launch/serve.py``).
 
+``--arch`` takes any registered architecture, at smoke size; the audio and
+VLM families decode against zero cross caches, as the JAX package's server
+does.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --requests 8 --slots 4 --max-new 16 [--device cpu]

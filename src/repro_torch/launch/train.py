@@ -1,7 +1,11 @@
 """Training launcher CLI (the port's ``repro/launch/train.py``).
 
 Single process: runs the Trainer on one device (the card unless
-``--device cpu``).
+``--device cpu``). ``--arch`` takes any registered architecture whose
+batches are tokens alone (dense, MoE, SSM, hybrid); the audio and VLM
+families also need frames / patches, which the synthetic pipeline does not
+carry, as in the JAX package: they train through ``build_loss_fn`` with
+``materialize_inputs``' context.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \

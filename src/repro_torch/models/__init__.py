@@ -1,6 +1,6 @@
-"""LM substrate of the port: the dense transformer family with stacked
-blocks, chunked attention and chunked cross-entropy (MoE, SSM, hybrid,
-audio and VLM families are ROADMAP Queue 1 item 10)."""
+"""LM substrate of the port: configurable transformer families
+(dense/MoE/SSM/hybrid/enc-dec/VLM) with stacked blocks, chunked attention,
+SSD state-space layers and GShard MoE."""
 
 from .config import ModelConfig, MoEConfig, SSMConfig, SHAPES, ShapeSpec  # noqa: F401
 from .api import (  # noqa: F401

@@ -34,14 +34,19 @@ def _spec(shape, dtype) -> torch.Tensor:
 
 def input_specs(cfg: ModelConfig, shape: str | ShapeSpec) -> dict[str, Any]:
     """Meta-tensor stand-ins for every input of (arch, shape)."""
-    T.check_supported(cfg)
     spec = SHAPES[shape] if isinstance(shape, str) else shape
     B, S = spec.global_batch, spec.seq_len
-    if spec.kind == "train":
-        return {"tokens": _spec((B, S), torch.int32),
-                "labels": _spec((B, S), torch.int32)}
-    if spec.kind == "prefill":
-        return {"tokens": _spec((B, S), torch.int32)}
+    if spec.kind in ("train", "prefill"):
+        out = {"tokens": _spec((B, S), torch.int32)}
+        if spec.kind == "train":
+            out["labels"] = _spec((B, S), torch.int32)
+        if cfg.family == "audio":
+            out["frames"] = _spec((B, _enc_len(cfg, S), cfg.d_model),
+                                  cfg.tdtype)
+        elif cfg.frontend_tokens:
+            out["patches"] = _spec((B, cfg.frontend_tokens, cfg.d_model),
+                                   cfg.tdtype)
+        return out
     # decode: one new token against a seq_len cache
     return {
         "token": _spec((B, 1), torch.int32),

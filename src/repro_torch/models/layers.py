@@ -11,6 +11,8 @@ ops with ``torch.utils.checkpoint`` for ``jax.checkpoint``, so the (S x S)
 score matrix is never materialized. It is no Pallas kernel in the JAX
 package, and the port keeps its algorithm (not
 ``scaled_dot_product_attention``) so the two agree chunk by chunk.
+``StackedDraws`` lets the ``init_*`` functions draw a stack of layers
+straight into its ``(R, ...)`` tensors.
 """
 
 from __future__ import annotations
@@ -28,11 +30,67 @@ from .pshard import shard
 # -- initializers ---------------------------------------------------------------
 
 
-def _dense_init(gen: torch.Generator, shape, dtype, device,
-                scale: float = 1.0):
-    std = scale / np.sqrt(shape[0])
+def _dense_init(gen, shape, dtype, device, scale: float = 1.0):
+    """A (fan_in, ...) weight of standard deviation scale / sqrt(fan_in),
+    drawn in float32 from ``gen`` (a ``torch.Generator`` or a
+    ``StackedDraws``)."""
+    std = float(scale / np.sqrt(shape[0]))
+    if isinstance(gen, StackedDraws):
+        return gen.draw(tuple(shape), dtype, device, std)
     x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (x * float(std)).to(dtype)
+    return x.mul_(std).to(dtype)
+
+
+class StackedDraws:
+    """The draws of R stacked layers, written straight into their
+    ``(R, ...)`` tensors: the k-th draw of layer r lands in slot r of the
+    k-th tensor. Layers are drawn in turn (``layer(r)`` before each), so
+    the values are those of drawing each layer's tree and stacking them,
+    while no more than one layer's leaf is held in float32 beside the
+    stack."""
+
+    def __init__(self, gen: torch.Generator, R: int):
+        self.gen, self.R = gen, R
+        self.out: list[torch.Tensor] = []
+        self._first: list[torch.Tensor] = []   # layer 0's views, by draw
+        self.r = self.k = 0
+
+    def layer(self, r: int) -> "StackedDraws":
+        self.r, self.k = r, 0
+        return self
+
+    def draw(self, shape, dtype, device, std: float) -> torch.Tensor:
+        if self.r == 0:
+            self.out.append(torch.empty((self.R,) + shape, dtype=dtype,
+                                        device=device))
+        dst = self.out[self.k]
+        self.k += 1
+        if dst.device.type != "meta":
+            x = torch.randn(shape, generator=self.gen, device=device,
+                            dtype=torch.float32)
+            dst[self.r].copy_(x.mul_(std))
+            del x
+        view = dst[self.r]
+        if self.r == 0:
+            self._first.append(view)
+        return view
+
+    def stack(self, trees: list[dict]) -> dict:
+        """The stacked tree of the R layers' trees: each drawn leaf is its
+        ``(R, ...)`` tensor, every other leaf (norm scales, biases, SSM
+        constants) is stacked."""
+        return _stack_trees(trees, {id(v): t for v, t in
+                                    zip(self._first, self.out)})
+
+
+def _stack_trees(ts: list, drawn: dict):
+    # a module-level recursion: a closure calling itself is a reference
+    # cycle, which would keep the stacked tensors alive until the cyclic
+    # garbage collector runs, long after the caller dropped them
+    if isinstance(ts[0], dict):
+        return {k: _stack_trees([t[k] for t in ts], drawn) for k in ts[0]}
+    full = drawn.get(id(ts[0]))
+    return torch.stack(ts) if full is None else full
 
 
 def _remat(fn, *args):

@@ -7,7 +7,7 @@ boundaries, attention heads, logits). By default this is the identity, so
 maps the symbolic names onto a device mesh. The JAX package's
 ``make_mesh_hook`` (``with_sharding_constraint`` on a JAX mesh) is not
 ported yet: it comes with the model half of ``launch/sharding.py``
-(ROADMAP Queue 1 item 10).
+(ROADMAP Queue 1 item 10, step 2).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Model assembly: stacked block parameters for the dense family (the port's
-``repro/models/transformer.py``).
+"""Model assembly: stacked block parameters for every architecture family
+(the port's ``repro/models/transformer.py``).
 
 Layers are grouped into the repeating (mixer, mlp) *pattern* of
 ``cfg.layer_pattern()``; the parameter tree holds one dict per pattern
@@ -15,18 +15,21 @@ the outputs of the plain matrix products (``mm`` / ``addmm``; the batched
 attention products are recomputed), as JAX's
 ``dots_with_no_batch_dims_saveable``.
 
-Decode state is a tuple of per-pattern-position ``KVCache``s stacked over
-repeats; ``serve_step`` writes them in place.
+Each stacked tensor is drawn in place, layer by layer
+(``layers.StackedDraws``), so a pattern position of R layers never exists
+twice (llama4's MoE position is 16.1 B parameters).
 
-Only the dense family runs (``mixer == "attn"``, ``mlp == "dense"``): a
-config whose pattern needs SSM, cross-attention or MoE layers, or an
-encoder, raises ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+Decode state is a tuple of per-pattern-position caches stacked over
+repeats (``KVCache`` for attn, the fixed context ``KVCache`` for
+cross-attention, ``SSMState`` for SSD layers; audio decoders append one
+cross-attention ``KVCache`` per position after them); ``serve_step`` writes
+them in place.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Union
+from typing import Any, NamedTuple, Optional, Union
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -34,22 +37,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import resolve_device
 from . import layers as L
+from . import moe as MOE
+from . import ssm as SSM
 from .config import ModelConfig
 from .layers import KVCache
 from .pshard import shard
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every layer of ``cfg`` is a dense attention block."""
-    kinds = set(cfg.layer_pattern())
-    if cfg.family in ("audio", "vlm") or cfg.encoder_layers or \
-            cfg.frontend_tokens or kinds != {("attn", "dense")} or \
-            cfg.d_ff <= 0:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} with layers "
-            f"{sorted(kinds)} is not ported yet (only dense attention "
-            "blocks run; MoE, SSM, hybrid, audio and VLM are ROADMAP "
-            "Queue 1 item 10)")
 
 
 def _generator(seed: Union[int, torch.Generator], device):
@@ -66,16 +58,36 @@ def _generator(seed: Union[int, torch.Generator], device):
 # -- init -------------------------------------------------------------------------
 
 
-def _init_block(gen, cfg: ModelConfig, dtype, dev):
+def _init_block(gen, cfg: ModelConfig, mixer: str, mlp: str, dtype, dev):
+    p: dict[str, Any] = {"norm1": L.init_norm(cfg, dtype, dev)}
+    if mixer in ("attn", "cross"):
+        p["mixer"] = L.init_attention(gen, cfg, dtype, dev)
+    else:
+        p["mixer"] = SSM.init_ssm(gen, cfg, dtype, dev)
+    if cfg.family == "audio":  # decoder layers carry self + cross attention
+        p["norm_c"] = L.init_norm(cfg, dtype, dev)
+        p["cross"] = L.init_attention(gen, cfg, dtype, dev)
+    if mlp == "moe":
+        p["norm2"] = L.init_norm(cfg, dtype, dev)
+        p["mlp"] = MOE.init_moe(gen, cfg, dtype, dev)
+    elif cfg.d_ff > 0:  # pure-SSM archs (mamba2) have no MLP sublayer
+        p["norm2"] = L.init_norm(cfg, dtype, dev)
+        p["mlp"] = L.init_mlp(gen, cfg, dtype, dev)
+    return p
+
+
+def _init_encoder_block(gen, cfg: ModelConfig, dtype, dev):
     return {"norm1": L.init_norm(cfg, dtype, dev),
             "mixer": L.init_attention(gen, cfg, dtype, dev),
             "norm2": L.init_norm(cfg, dtype, dev),
             "mlp": L.init_mlp(gen, cfg, dtype, dev)}
 
 
-def _stack(trees: list[dict]) -> dict:
-    return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
-            else torch.stack([t[k] for t in trees]) for k in trees[0]}
+def _init_stack(gen, R: int, make) -> dict:
+    """R layers of ``make(gen)`` stacked on a leading axis, each drawn leaf
+    drawn straight into its ``(R, ...)`` tensor."""
+    draws = L.StackedDraws(gen, R)
+    return draws.stack([make(draws.layer(r)) for r in range(R)])
 
 
 def init_model(seed: Union[int, torch.Generator], cfg: ModelConfig, *,
@@ -85,15 +97,21 @@ def init_model(seed: Union[int, torch.Generator], cfg: ModelConfig, *,
     gives shapes only). The draws differ
     from ``jax.random``'s; carry JAX's weights across with
     ``repro_torch.convert.model_from_numpy``."""
-    check_supported(cfg)
     gen, dev = _generator(seed, device)
     dtype = cfg.tdtype
     R = cfg.num_pattern_repeats
     params: dict[str, Any] = {"emb": L.init_embeddings(gen, cfg, dtype, dev)}
-    params["blocks"] = [_stack([_init_block(gen, cfg, dtype, dev)
-                                for _ in range(R)])
-                        for _ in cfg.layer_pattern()]
+    params["blocks"] = [
+        _init_stack(gen, R, lambda g, mixer=mixer, mlp=mlp: _init_block(
+            g, cfg, mixer, mlp, dtype, dev))
+        for mixer, mlp in cfg.layer_pattern()]
     params["final_norm"] = L.init_norm(cfg, dtype, dev)
+    if cfg.encoder_layers:
+        params["encoder"] = {
+            "blocks": _init_stack(gen, cfg.encoder_layers, lambda g:
+                                  _init_encoder_block(g, cfg, dtype, dev)),
+            "final_norm": L.init_norm(cfg, dtype, dev),
+        }
     return params
 
 
@@ -108,11 +126,33 @@ def _unstack(tree: dict, R: int) -> list[dict]:
 # -- forward (full-sequence) --------------------------------------------------------
 
 
-def _apply_block(bp, x, cfg: ModelConfig, positions, causal: bool):
+def _apply_block(bp, x, cfg: ModelConfig, mixer: str, mlp: str, positions,
+                 ctx, causal: bool):
+    """One block: (x, the MoE auxiliary loss or None)."""
+    aux = None
     h = L.apply_norm(bp["norm1"], x, cfg.norm)
-    x = x + L.attention_block(bp["mixer"], h, cfg, positions, causal=causal)
-    h2 = L.apply_norm(bp["norm2"], x, cfg.norm)
-    return x + L.apply_mlp(bp["mlp"], h2, cfg.act)
+    if mixer == "attn":
+        x = x + L.attention_block(bp["mixer"], h, cfg, positions,
+                                  causal=causal)
+    elif mixer == "cross":
+        kv = L.cross_kv(bp["mixer"], ctx, cfg)
+        x = x + L.attention_block(bp["mixer"], h, cfg, positions,
+                                  causal=False, kv_override=kv, rope=False)
+    else:
+        x = x + SSM.ssd_forward(bp["mixer"], h, cfg)
+    if cfg.family == "audio" and ctx is not None:
+        hc = L.apply_norm(bp["norm_c"], x, cfg.norm)
+        kv = L.cross_kv(bp["cross"], ctx, cfg)
+        x = x + L.attention_block(bp["cross"], hc, cfg, positions,
+                                  causal=False, kv_override=kv, rope=False)
+    if mlp == "moe":
+        h2 = L.apply_norm(bp["norm2"], x, cfg.norm)
+        y, aux = MOE.apply_moe(bp["mlp"], h2, cfg)
+        x = x + y
+    elif cfg.d_ff > 0:
+        h2 = L.apply_norm(bp["norm2"], x, cfg.norm)
+        x = x + L.apply_mlp(bp["mlp"], h2, cfg.act)
+    return x, aux
 
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -123,30 +163,72 @@ def _dots_policy(ctx, op, *args, **kwargs):
         CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def apply_blocks(params, x, cfg: ModelConfig, *, causal=True):
-    """The depth loop; returns (hidden, moe_aux) with moe_aux 0 (dense)."""
-    check_supported(cfg)
+def _remat_kwargs(cfg: ModelConfig) -> dict:
+    kw = {"use_reentrant": False}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return kw
+
+
+def apply_blocks(params, x, cfg: ModelConfig, *, ctx=None, causal=True):
+    """The depth loop; returns (hidden, moe_aux): the MoE layers'
+    auxiliary losses summed (0 without MoE layers)."""
     pat = cfg.layer_pattern()
     R = cfg.num_pattern_repeats
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
-    step = functools.partial(_apply_block, cfg=cfg, positions=positions,
-                             causal=causal)
+
+    def step(bp, x, i):
+        mixer, mlp = pat[i]
+        return _apply_block(bp, x, cfg, mixer, mlp, positions, ctx, causal)
+
     if cfg.remat:
-        kw = {"use_reentrant": False}
-        if cfg.remat_policy == "dots":
-            kw["context_fn"] = functools.partial(
-                create_selective_checkpoint_contexts, _dots_policy)
-        plain = step
-        step = lambda bp, x: checkpoint(plain, bp, x, **kw)  # noqa: E731
+        plain, kw = step, _remat_kwargs(cfg)
+        step = lambda bp, x, i: checkpoint(plain, bp, x, i, **kw)  # noqa: E731
     layers = [_unstack(bp, R) for bp in params["blocks"]]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(R):
         for i in range(len(pat)):
-            x = step(layers[i][r], x)
+            x, a = step(layers[i][r], x, i)
             x = shard(x, "dp", "model", None)   # sequence-parallel carry
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            if a is not None:
+                aux = aux + a
     return L.apply_norm(params["final_norm"], x, cfg.norm), aux
+
+
+def apply_encoder(params, frames, cfg: ModelConfig):
+    """Whisper-style encoder over (precomputed) frame embeddings."""
+    enc = params["encoder"]
+
+    def body(bp, x):
+        B, S, _ = x.shape
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=x.device)[None].expand(B, S)
+        h = L.apply_norm(bp["norm1"], x, cfg.norm)
+        x = x + L.attention_block(bp["mixer"], h, cfg, pos, causal=False)
+        h2 = L.apply_norm(bp["norm2"], x, cfg.norm)
+        return x + L.apply_mlp(bp["mlp"], h2, cfg.act)
+
+    step = body
+    if cfg.remat:       # jax.checkpoint(body): the default policy
+        def step(bp, x):
+            return checkpoint(body, bp, x, use_reentrant=False)
+    x = frames
+    for bp in _unstack(enc["blocks"], cfg.encoder_layers):
+        x = step(bp, x)
+    return L.apply_norm(enc["final_norm"], x, cfg.norm)
+
+
+def _context(params, batch, cfg: ModelConfig):
+    """The cross-attention context of a batch: the encoder's output over
+    ``frames`` (audio), the ``patches`` (VLM), else None."""
+    if cfg.encoder_layers:
+        return apply_encoder(params, batch["frames"], cfg)
+    if cfg.frontend_tokens:
+        return batch["patches"]
+    return None
 
 
 # -- train loss ----------------------------------------------------------------------
@@ -155,7 +237,8 @@ def apply_blocks(params, x, cfg: ModelConfig, *, causal=True):
 def train_loss(params, batch, cfg: ModelConfig, *, aux_weight: float = 0.01):
     """Causal-LM CE loss (chunked over the vocab projection)."""
     x = shard(L.embed(params["emb"], batch["tokens"]), "dp", "model", None)
-    h, aux = apply_blocks(params, x, cfg, causal=True)
+    h, aux = apply_blocks(params, x, cfg, ctx=_context(params, batch, cfg),
+                          causal=True)
     loss = L.chunked_ce_loss(params["emb"], h, batch["labels"])
     return loss + aux_weight * aux
 
@@ -163,41 +246,86 @@ def train_loss(params, batch, cfg: ModelConfig, *, aux_weight: float = 0.01):
 # -- serving: prefill & decode ---------------------------------------------------------
 
 
+class DecodeState(NamedTuple):
+    caches: tuple                    # per pattern position, stacked over repeats
+    cache_len: torch.Tensor          # () int32
+    ctx_kv: Optional[tuple]          # not used; context KV lives in caches
+
+
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                        ctx_len: int = 0, *, device=None):
-    """Zero caches for one-token serve steps: one ``KVCache`` of
-    ``(R, batch, max_len, KV, hd)`` per pattern position (int8 when
-    ``cfg.kv_cache_dtype == "int8"``). ``device="meta"`` gives shapes
-    only."""
-    check_supported(cfg)
+    """Zero caches for one-token serve steps, one per pattern position,
+    each stacked over the R repeats: a ``KVCache`` of ``(R, batch,
+    max_len, KV, hd)`` for attn (int8 when ``cfg.kv_cache_dtype ==
+    "int8"``), of ``(R, batch, ctx_len, KV, hd)`` for cross, an
+    ``SSMState`` for SSD layers; audio decoders append one cross
+    ``KVCache`` of ``ctx_len`` per position. ``device="meta"`` gives
+    shapes only."""
     dev = device if str(device) == "meta" else resolve_device(device)
     dtype = torch.int8 if cfg.kv_cache_dtype == "int8" else cfg.tdtype
-    shape = (cfg.num_pattern_repeats, batch, max_len, cfg.num_kv_heads,
-             cfg.hd)
-    return tuple(KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
-                         v=torch.zeros(shape, dtype=dtype, device=dev))
-                 for _ in cfg.layer_pattern())
+    R, KV, hd = cfg.num_pattern_repeats, cfg.num_kv_heads, cfg.hd
+
+    def kv(length):
+        shape = (R, batch, length, KV, hd)
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                       v=torch.zeros(shape, dtype=dtype, device=dev))
+
+    caches = []
+    for mixer, _ in cfg.layer_pattern():
+        if mixer == "attn":
+            caches.append(kv(max_len))
+        elif mixer == "cross":
+            caches.append(kv(ctx_len))
+        else:
+            s = SSM.ssm_init_state(cfg, batch, dtype, device="meta")
+            caches.append(SSM.SSMState(*(
+                torch.zeros((R,) + tuple(x.shape), dtype=x.dtype, device=dev)
+                for x in s)))
+    # Audio decoders additionally carry per-position cross-attention KV
+    # (encoder outputs projected per layer), appended after the self caches.
+    if cfg.family == "audio":
+        caches += [kv(ctx_len) for _ in cfg.layer_pattern()]
+    return tuple(caches)
 
 
 @torch.no_grad()
 def serve_step(params, caches, token, cache_len, cfg: ModelConfig):
     """One-token decode: token (B, 1) -> (logits (B, 1, V), caches). The
     caches are updated in place and returned."""
-    check_supported(cfg)
     pat = cfg.layer_pattern()
     R = cfg.num_pattern_repeats
     cache_len = int(cache_len)
     x = L.embed(params["emb"], token)
     layers = [_unstack(bp, R) for bp in params["blocks"]]
     for r in range(R):
-        for i in range(len(pat)):
+        for i, (mixer, mlp) in enumerate(pat):
             bp, c = layers[i][r], caches[i]
             h = L.apply_norm(bp["norm1"], x, cfg.norm)
-            out, _ = L.decode_attention(bp["mixer"], h, cfg,
-                                        KVCache(c.k[r], c.v[r]), cache_len)
+            if mixer == "attn":
+                out, _ = L.decode_attention(bp["mixer"], h, cfg,
+                                            KVCache(c.k[r], c.v[r]),
+                                            cache_len)
+            elif mixer == "cross":
+                out = L.decode_cross_attention(bp["mixer"], h, cfg,
+                                               KVCache(c.k[r], c.v[r]))
+            else:
+                out, new = SSM.ssd_decode_step(
+                    bp["mixer"], h, cfg, SSM.SSMState(c.conv[r], c.ssm[r]))
+                c.conv[r].copy_(new.conv)
+                c.ssm[r].copy_(new.ssm)
             x = x + out
-            h2 = L.apply_norm(bp["norm2"], x, cfg.norm)
-            x = x + L.apply_mlp(bp["mlp"], h2, cfg.act)
+            if cfg.family == "audio":
+                hc = L.apply_norm(bp["norm_c"], x, cfg.norm)
+                cc = caches[len(pat) + i]
+                x = x + L.decode_cross_attention(bp["cross"], hc, cfg,
+                                                 KVCache(cc.k[r], cc.v[r]))
+            if mlp == "moe":
+                h2 = L.apply_norm(bp["norm2"], x, cfg.norm)
+                y, _ = MOE.apply_moe(bp["mlp"], h2, cfg)
+                x = x + y
+            elif cfg.d_ff > 0:
+                h2 = L.apply_norm(bp["norm2"], x, cfg.norm)
+                x = x + L.apply_mlp(bp["mlp"], h2, cfg.act)
     h = L.apply_norm(params["final_norm"], x, cfg.norm)
     return L.unembed_logits(params["emb"], h), caches
 
@@ -206,5 +334,6 @@ def serve_step(params, caches, token, cache_len, cfg: ModelConfig):
 def prefill(params, batch, cfg: ModelConfig):
     """Full-sequence forward returning last-position logits (B, 1, V)."""
     x = shard(L.embed(params["emb"], batch["tokens"]), "dp", "model", None)
-    h, _ = apply_blocks(params, x, cfg, causal=True)
+    h, _ = apply_blocks(params, x, cfg, ctx=_context(params, batch, cfg),
+                        causal=True)
     return L.unembed_logits(params["emb"], h[:, -1:])

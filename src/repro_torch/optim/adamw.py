@@ -8,7 +8,9 @@ rate. It is not ``torch.optim.AdamW``, which clips nothing and decays the
 weights apart from the step. ``adamw_update`` is functional, as JAX's: it
 returns new tensors and leaves its arguments as they were (TLR-KFAC grafts
 its step from the difference). ``moment_dtype=bfloat16`` halves the
-optimizer state.
+optimizer state. A leaf larger than ``_CHUNK`` elements is updated in
+slices (the same bits), so the update holds little beyond the old and the
+new state (granite-moe's stacked expert leaves hold 1.0 B elements each).
 """
 
 from __future__ import annotations
@@ -56,6 +58,10 @@ def global_norm(tree) -> torch.Tensor:
                                    for x in leaves(tree)]).sum())
 
 
+# Elements of a leaf updated at a time (float32 temporaries of 256 MiB).
+_CHUNK = 1 << 26
+
+
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
     """Returns (new_params, new_state)."""
@@ -67,7 +73,7 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
     bc1 = 1 - torch.pow(cfg.b1, t)       # float32, as JAX's b1 ** step
     bc2 = 1 - torch.pow(cfg.b2, t)
 
-    def upd(g, m, v, p):
+    def upd_flat(g, m, v, p):
         g = g.float() * clip
         mf = m.float() * cfg.b1 + (1 - cfg.b1) * g
         vf = v.float() * cfg.b2 + (1 - cfg.b2) * g * g
@@ -77,6 +83,19 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
             cfg.weight_decay * p.float()
         newp = p.float() - cfg.lr * delta
         return newp.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
+
+    def upd(g, m, v, p):
+        if p.numel() <= _CHUNK:
+            return upd_flat(g, m, v, p)
+        # elementwise, so a leaf updated in slices gives the same bits
+        # while its float32 temporaries stay at _CHUNK elements
+        out = (torch.empty_like(p), torch.empty_like(m), torch.empty_like(v))
+        flat = [x.reshape(-1) for x in (g, m, v, p)]
+        dst = [x.view(-1) for x in out]
+        for a in range(0, p.numel(), _CHUNK):
+            for d, x in zip(dst, upd_flat(*(f[a:a + _CHUNK] for f in flat))):
+                d[a:a + _CHUNK] = x
+        return out
 
     out = [upd(*xs) for xs in zip(leaves(grads), leaves(state.m),
                                   leaves(state.v), leaves(params))]

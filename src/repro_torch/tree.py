@@ -51,23 +51,26 @@ def leaves(tree) -> list:
 def unflatten(like, new_leaves) -> Any:
     """A tree of ``like``'s structure holding ``new_leaves`` in order."""
     it = iter(new_leaves)
-
-    def build(t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        if _is_namedtuple(t):
-            return type(t)(*(build(getattr(t, f)) for f in t._fields))
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
-
-    out = build(like)
+    out = _build(like, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the structure holds")
     return out
+
+
+def _build(t, it):
+    # module-level: a nested function that calls itself is a reference
+    # cycle, which would hold the leaves (tensors) until the cyclic garbage
+    # collector runs
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}
+    if _is_namedtuple(t):
+        return type(t)(*(_build(getattr(t, f), it) for f in t._fields))
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(x, it) for x in t)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree) -> Any:

@@ -47,14 +47,11 @@ def test_every_jax_core_name_is_ported_or_listed():
 
 LM_PACKAGES = ("models", "optim", "train", "data", "checkpoint", "configs")
 # JAX modules of those packages the port does not have yet, and public
-# names of ported modules it lacks: the MoE / SSM families and the
-# hybrid, audio and VLM branches (ROADMAP Queue 1 item 10), and
-# ``make_mesh_hook``, which goes with the model half of
-# ``launch/sharding.py`` on a device mesh.
-LM_DEFERRED_MODULES = {"models/moe.py", "models/ssm.py"}
-LM_DEFERRED_NAMES = {"models/pshard.py": {"make_mesh_hook"},
-                     "models/transformer.py": {"apply_encoder",
-                                               "DecodeState"}}
+# names of ported modules it lacks: ``make_mesh_hook``, which goes with the
+# model half of ``launch/sharding.py`` on a device mesh (ROADMAP Queue 1
+# item 10, step 2).
+LM_DEFERRED_MODULES: set[str] = set()
+LM_DEFERRED_NAMES = {"models/pshard.py": {"make_mesh_hook"}}
 
 
 def _public_names(path: Path) -> list[str]:

@@ -1,4 +1,4 @@
-"""The port's dense LM path (``repro_torch.models``, ``repro_torch.configs``)
+"""The port's LM path (``repro_torch.models``, ``repro_torch.configs``)
 against the JAX package on the CPU.
 
 Inputs come from numpy seeds and weights are carried across with
@@ -247,20 +247,10 @@ def test_remat_policies_change_no_value():
             torch.testing.assert_close(g, g0, rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("arch", OTHER)
-def test_other_families_raise(arch):
-    cfg = get_config(arch, smoke=True)
-    for call in (lambda: init_model(0, cfg, device="cpu"),
-                 lambda: input_specs(cfg, "train_4k"),
-                 lambda: init_decode_caches(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            call()
-
-
 def test_parameter_tree_is_jax_s():
-    """Names, shapes and order of every leaf; abstract_params allocates
-    nothing."""
-    for arch in DENSE:
+    """Names, shapes and order of every leaf, of every architecture;
+    abstract_params allocates nothing."""
+    for arch in ARCHS:
         cfg = get_config(arch)
         jtree = jabstract_params(jget_config(arch))
         tree = abstract_params(cfg)
@@ -294,7 +284,7 @@ def test_configs_match_jax():
         get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + OTHER)
 def test_input_specs_and_inputs_match_jax(arch):
     cfg, jcfg = get_config(arch, smoke=True), jget_config(arch, smoke=True)
     for shape in ("train_4k", "prefill_32k", "decode_32k"):

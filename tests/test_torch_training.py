@@ -494,3 +494,13 @@ def test_launchers(tmp_path, capsys):
     launch_serve.main(["--arch", "phi3-mini-3.8b", "--requests", "3",
                        "--slots", "2", "--max-new", "4", "--device", "cpu"])
     assert "3 completions, 12 tokens" in capsys.readouterr().out
+    # an SSM family through both launchers
+    launch_train.main(["--arch", "mamba2-130m", "--smoke", "--steps", "2",
+                       "--batch", "2", "--seq", "32", "--ckpt-dir",
+                       str(tmp_path / "ssm"), "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "status=done final_step=2" in out and "loss " in out
+    assert latest_checkpoint(tmp_path / "ssm").name == "step_00000002"
+    launch_serve.main(["--arch", "mamba2-130m", "--requests", "3",
+                       "--slots", "2", "--max-new", "4", "--device", "cpu"])
+    assert "3 completions, 12 tokens" in capsys.readouterr().out
