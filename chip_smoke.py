@@ -132,6 +132,23 @@ before it and read just after:
     float32 on the same weights where bf16 routing differs between the
     two); one granite and one llama4 MoE layer match a dense top-k oracle.
     No kernel of the port is on this path.
+15. model sharding and the dry run (``model_sharding_phase``): in a
+    subprocess on the host, the dry run's cells qwen1.5-0.5b x train_4k
+    and granite-moe-3b-a800m x train_4k on a (16, 16) (data, model) mesh
+    of 256 fake ranks and mamba2-130m x decode_32k on (2, 16, 16) of 512
+    (``launch/dryrun.run_cell``, a CUDA-typed mesh, full width, one
+    pattern repeat), gated on a rank's FLOPs and peak within
+    ``rank_bounds`` of the unsharded step's, rank 0's parameter bytes
+    equal to what the placements imply and collectives > 0, logging peak
+    and FLOPs per rank, collective bytes by op and link and the roofline
+    estimate; beside them, on the card, qwen1.5-0.5b at full width on two
+    gloo ranks sharing cuda:0, a (1, 2) (data, model) mesh with parameters
+    placed by ``params_shardings`` and the hook installed: one AdamW step
+    of 8 x 1024 tokens in float32 (loss within 1e-4 of one device's, each
+    parameter's update within 1e-3 of the norm of one device's and 0.1 lr
+    of it everywhere), 8 greedy ticks of 8 sequences in float32 (the
+    tokens one device's) and 8 in bf16 fed one device's tokens (logits
+    within 5e-2 of the largest). No kernel of the port is on this path.
 
 Then it holds each kernel against its plain PyTorch version on the card
 (f64, f32 and bf16; f64 and f32 for the QR and SVD) at the paths' shapes
@@ -250,6 +267,19 @@ FAM_ORACLE = (("granite-moe-3b-a800m", 256, "float32", 1e-4),
 FAM_SMOKE = ("jamba_v0_1_52b", "whisper_large_v3",
              "llama4_maverick_400b_a17b", "granite_moe_3b_a800m",
              "mamba2_130m", "llama_3_2_vision_90b")
+# Model sharding and the dry run (path 15): the dry run's cells (arch,
+# shape, mesh) at full width on the production meshes (a fake process group
+# of 256 or 512 ranks, CUDA-typed, in a subprocess), DRY_REPEATS repeat of
+# the layer pattern deep (the smoke's time limit; PERF.md has the full-depth
+# table); beside them qwen1.5-0.5b at full width on SHARD_RANKS
+# ranks sharing cuda:0 over gloo, a (1, SHARD_RANKS) (data, model) mesh: one
+# AdamW step of SHARD_BATCH x LM_SEQ tokens and SHARD_TICKS greedy decode
+# ticks of SHARD_BATCH sequences, against the same on one device.
+DRY_CELLS = (("qwen1_5_0_5b", "train_4k", "single"),
+             ("granite_moe_3b_a800m", "train_4k", "single"),
+             ("mamba2_130m", "decode_32k", "multi"))
+DRY_REPEATS = 1
+SHARD_RANKS, SHARD_BATCH, SHARD_TICKS, SHARD_MAX_LEN = 2, 8, 8, 64
 # Kernel against plain version: max abs error <= TOL * max |plain output|
 # (the tolerances of tests/test_kernels.py, relative to the output's scale),
 # for every output of the kernel. small_svd is held at TOL_SCALE = 10 times
@@ -3723,10 +3753,380 @@ def family_parity(dev: str = "cuda") -> None:
             f"family parity {arch}: card and CPU disagree"
 
 
+# -- path 15: model sharding and the dry run ------------------------------------
+
+
+def dryrun_cells(out: str) -> None:
+    """The DRY_CELLS on the card's host, in this (sub)process: each cell's
+    record (``launch.dryrun.run_cell``, a CUDA-typed fake mesh), the
+    parameter bytes rank 0 holds by the placements (each leaf's local
+    block, computed apart from the run), and the roofline estimate. Writes
+    them as JSON to ``out``."""
+    import dataclasses
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.tensor._utils import \
+        _compute_local_shape_and_global_offset
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.sharding import params_shardings
+    from repro_torch.tree import flatten_with_path
+    from repro_torch.launch.sharding import _at
+
+    res = []
+    for arch, shape, mesh_kind in DRY_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, mesh_kind, save=False,
+                              repeats=DRY_REPEATS)
+        sec = time.perf_counter() - t0
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(
+            cfg, num_layers=DRY_REPEATS * len(cfg.layer_pattern()))
+        _, args, _ = dryrun._build_step(cfg, shape)
+        layout = dryrun.MeshLayout(rec["exec_mesh_shape"],
+                                   rec["exec_mesh_axes"])
+        placed = params_shardings(args[0], layout)
+        implied = 0
+        for path, x in flatten_with_path(args[0]):
+            local, _ = _compute_local_shape_and_global_offset(
+                tuple(x.shape), layout.shape, [0] * len(layout.shape),
+                _at(placed, path))
+            implied += math.prod(local) * x.element_size()
+        res.append({"cell": [arch, shape, mesh_kind], "seconds": sec,
+                    "record": rec, "implied_param_bytes": implied,
+                    "bounds": dryrun.rank_bounds(rec),
+                    "roofline": roofline.analyze(rec)})
+    Path(out).write_text(json.dumps(res))
+
+
+def dryrun_start():
+    """Path 15 (a), started: ``dryrun_cells`` in a subprocess (its fake
+    process group and DTensor state stay there; it uses the host's cores
+    while ``shard_phase`` holds the card). Returns what ``dryrun_finish``
+    reads."""
+    work = ROOT / "build" / "dryrun_phase"
+    work.mkdir(parents=True, exist_ok=True)
+    out = work / "cells.json"
+    out.unlink(missing_ok=True)
+    logs = open(work / "cells.log", "w")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--dryrun-cells", str(out)],
+                            stdout=logs, stderr=subprocess.STDOUT)
+    return proc, logs, work, time.perf_counter()
+
+
+def dryrun_finish(started) -> list:
+    """Path 15 (a), read: gates per cell, each against the unsharded
+    step (``launch.dryrun.rank_bounds``): a rank's FLOPs at least the
+    whole step's over the ranks and at most F times that, F 1.05 where the
+    model axis divides every dim and its size where the rules leave a dim
+    whole (named); a rank's peak at most F times the whole step's peak over
+    the ranks plus the parameters twice and the rank's arguments; rank 0's
+    parameter bytes equal to what the placements imply; collectives > 0.
+    Logs peak GiB and FLOPs per rank, whole-module FLOPs, collective bytes
+    by op and by link, and the roofline terms (estimates at the H100's
+    datasheet rates, not measurements)."""
+    proc, logs, work, t0 = started
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        logs.close()
+    text = (work / "cells.log").read_text()
+    assert rc == 0, f"dry-run cells failed (rc {rc}):\n{text[-6000:]}"
+    cells = json.loads((work / "cells.json").read_text())
+    for c in cells:
+        rec, rl, bd = c["record"], c["roofline"], c["bounds"]
+        tag = " x ".join(c["cell"])
+        coll, mem = rec["collectives"], rec["memory"]
+        flops = rec["cost"]["flops_per_rank"]
+        lo, hi = bd["flops_per_rank"]
+        log(f"dryrun {tag}: {rec['devices']} ranks, mesh "
+            f"{rec['mesh_shape']} {rec['mesh_axes']} (run on "
+            f"{rec['exec_mesh_shape']} {rec['exec_mesh_axes']}), "
+            f"{rec['num_layers']} layers, full width; {c['seconds']:.1f} s "
+            f"(fake step {rec['trace_s']} s); peak/rank "
+            f"{mem['peak_bytes_est'] / 2**30:.3f} GiB (bound "
+            f"{bd['peak_bytes_est'] / 2**30:.3f}; unsharded step "
+            f"{mem['peak_bytes_whole'] / 2**30:.3f}), params/rank "
+            f"{mem['param_bytes']} B (implied "
+            f"{c['implied_param_bytes']} B); flops/rank {flops:.4e} = "
+            f"{flops / lo:.4f} x whole/ranks (bound {bd['factor']}; whole "
+            f"over the model axis: {rec['model']['whole_over_model']}), "
+            f"whole-module {rec['cost']['flops_total']:.6e}; collectives "
+            f"{json.dumps(coll['counts'])}, bytes/rank by op and link "
+            f"{json.dumps(coll['bytes_by_link'])}")
+        log(f"dryrun {tag} roofline estimate (H100 datasheet rates): "
+            f"compute {rl['t_compute_s'] * 1e3:.4g} ms (the busiest rank's "
+            f"{rl['t_compute_rank_s'] * 1e3:.4g}), memory "
+            f"{rl['t_memory_s'] * 1e3:.4g} ms, collective "
+            f"{rl['t_collective_s'] * 1e3:.4g} ms, dominant "
+            f"{rl['dominant']}, useful {rl['useful_ratio']:.3f}, roofline "
+            f"{100 * rl['roofline_fraction']:.3g} %")
+        assert lo * (1 - 1e-9) <= flops <= hi * (1 + 1e-9), \
+            f"{tag}: a rank's FLOPs {flops:.4e} outside [{lo:.4e}, {hi:.4e}]"
+        assert mem["peak_bytes_est"] <= bd["peak_bytes_est"], \
+            f"{tag}: a rank's peak above its bound"
+        assert mem["param_bytes"] == c["implied_param_bytes"], \
+            f"{tag}: rank 0's parameter bytes differ from the placements'"
+        assert coll["total_bytes"] > 0 and sum(coll["counts"].values()) > 0, \
+            f"{tag}: no collective"
+    log(f"dryrun: {len(cells)} cells in {time.perf_counter() - t0:.1f} s "
+        f"from start (beside the sharded run)")
+    return cells
+
+
+def model_sharding_phase() -> dict:
+    """Path 15: the dry-run cells (a subprocess on the host) beside the
+    sharded qwen on the card."""
+    t0 = time.perf_counter()
+    started = dryrun_start()
+    try:
+        shard = shard_phase()
+    except BaseException:
+        started[0].kill()
+        raise
+    cells = dryrun_finish(started)
+    log(f"path 15: {time.perf_counter() - t0:.1f} s")
+    return {"shard": shard, "cells": cells}
+
+
+def shard_rank(rank: int, world: int, work: str) -> None:
+    """One rank of ``shard_phase``, started by torch.multiprocessing.spawn:
+    qwen1.5-0.5b's parameters (the parent's seed) in float32, the parent's
+    batch and first tokens, one AdamW step and SHARD_TICKS greedy ticks in
+    float32, then SHARD_TICKS ticks in bf16 fed the parent's bf16 tokens,
+    on a (1, world) (data, model) mesh over gloo on cuda:0. Rank 0 saves
+    each parameter's update whole and the bf16 ticks' logits; every rank
+    writes its seconds, peak memory, parameter bytes, loss and tokens to
+    ``work/rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import gloo_cuda_all_gather
+
+    work = Path(work)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        with gloo_cuda_all_gather():
+            shard_rank_work(rank, world, work)
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_rank_work(rank: int, world: int, work: Path) -> None:
+    """``shard_rank``'s work, in its process group."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import greedy_decode, sharded_train_step
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import init_model
+    from repro_torch.tree import flatten_with_path, path_str, tree_map
+
+    mesh = make_test_mesh((1, world), ("data", "model"))
+    cfg = get_config(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_model(0, cfg, device="cuda")
+    p32 = tree_map(lambda x: x.float(), params)
+    inp = torch.load(work / "inputs.pt", map_location="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    (loss, new, state), sec = sync_time(lambda: sharded_train_step(
+        cfg32, p32, inp["batch"], mesh))
+    peak = torch.cuda.max_memory_allocated()
+    flat = flatten_with_path(new)
+    nbytes = sum(x.to_local().numel() * x.to_local().element_size()
+                 for _, x in flat)
+    old = dict((path_str(p, "/"), x) for p, x in flatten_with_path(p32))
+    upd = {path_str(p, "/"): (x.full_tensor() - old[path_str(p, "/")]
+                              ).cpu() for p, x in flat}
+    m = {path_str(p, "/"): x.full_tensor().cpu()
+         for p, x in flatten_with_path(state.m)}
+    if rank == 0:
+        torch.save({"update": upd, "m": m}, work / "updates.pt")
+    del new, state, upd, m, old
+    toks, tsec = sync_time(lambda: greedy_decode(
+        cfg32, p32, inp["token"], SHARD_TICKS, SHARD_MAX_LEN, mesh)[0])
+    del p32
+    (picks, logits), bsec = sync_time(lambda: greedy_decode(
+        cfg, params, inp["token"], SHARD_TICKS, SHARD_MAX_LEN, mesh,
+        feed=inp["feed"]))
+    if rank == 0:
+        torch.save(logits.cpu(), work / "logits_bf16.pt")
+    (work / f"rank{rank}.json").write_text(json.dumps({
+        "loss": float(loss.full_tensor()), "seconds": sec,
+        "decode_seconds": tsec, "bf16_decode_seconds": bsec,
+        "peak": peak, "param_bytes": nbytes,
+        "tokens": toks.cpu().tolist(), "bf16_picks": picks.cpu().tolist()}))
+
+
+def shard_phase() -> dict:
+    """Path 15 (b): qwen1.5-0.5b at its published width on SHARD_RANKS
+    ranks sharing cuda:0 over gloo (``shard_rank``; NCCL takes one rank per
+    card), parameters and moments placed by ``params_shardings``, the hook
+    installed, against the same step and ticks on one device (this
+    process, same seed and inputs). The step runs in float32, so that its
+    update (about lr, a few bf16 ulps of a parameter) is compared and not
+    its rounding. Per parameter: the first moment, (1 - b1) times the
+    gradient, within 1e-4 of the norm of one device's (the sharded
+    backward); the update within 1e-2 lr of one device's at every element
+    whose gradient is at least 1e-6 (AdamW's first step is
+    lr g / (|g| + eps); where a gradient cancels to about eps = 1e-8, the
+    rounding of the two reduction orders moves it by up to lr times that
+    rounding over eps, 0.59 lr at one element on an H100: those elements
+    are counted and their norm logged); the loss within 1e-4 relative. A
+    wrong, partial or missing gradient or update moves them by about
+    their size. The greedy ticks in float32 give one device's tokens.
+    The ticks in bf16 are fed one device's bf16 tokens, so that both see
+    the same inputs; their logits are held at the decode-against-prefill
+    tolerance of paths 13 and 14 (5e-2 of the largest), and where the
+    sharded argmax differs from one device's, both top-2 margins are
+    logged. Logs seconds, peak memory and parameter bytes per rank beside
+    one device's."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import greedy_decode, train_step_fn
+    from repro_torch.models import init_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.tree import flatten_with_path, path_str, tree_map
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "shard_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = get_config(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rng = np.random.default_rng(0)
+    V = cfg.vocab_size
+    inp = {"batch": {k: torch.as_tensor(rng.integers(
+               0, V, (SHARD_BATCH, LM_SEQ), dtype=np.int32), device="cuda")
+               for k in ("tokens", "labels")},
+           "token": torch.as_tensor(rng.integers(1, V, (SHARD_BATCH, 1),
+                                                 dtype=np.int32),
+                                    device="cuda")}
+    params = init_model(0, cfg, device="cuda")
+    ref_picks, ref_logits = greedy_decode(cfg, params, inp["token"],
+                                          SHARD_TICKS, SHARD_MAX_LEN)
+    inp["feed"] = ref_picks[:, :-1].contiguous()
+    torch.save(inp, work / "inputs.pt")
+    p32 = tree_map(lambda x: x.float(), params)
+    del params
+    fn, ocfg = train_step_fn(cfg32)
+    torch.cuda.reset_peak_memory_stats()
+    (loss, new, state), sec = sync_time(lambda: fn(
+        p32, adamw_init(p32, ocfg), inp["batch"]))
+    peak = torch.cuda.max_memory_allocated()
+    old = dict((path_str(p, "/"), x) for p, x in flatten_with_path(p32))
+    # the references stay on the card, where the comparison runs
+    ref = {path_str(p, "/"): x - old[path_str(p, "/")]
+           for p, x in flatten_with_path(new)}
+    ref_m = {path_str(p, "/"): x for p, x in flatten_with_path(state.m)}
+    one_bytes = sum(x.numel() * x.element_size() for x in old.values())
+    ref_loss = float(loss)
+    del new, state, loss, old
+    ref_toks, tsec = sync_time(lambda: greedy_decode(
+        cfg32, p32, inp["token"], SHARD_TICKS, SHARD_MAX_LEN)[0])
+    del p32
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    mp.spawn(shard_rank, args=(SHARD_RANKS, str(work)), nprocs=SHARD_RANKS,
+             join=True)
+    t_ranks = time.perf_counter() - t1
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(SHARD_RANKS)]
+    got = torch.load(work / "updates.pt", map_location="cuda")
+    lr, floor = ocfg.lr, 1e-6 * (1 - ocfg.b1)
+    e_m = e_u = e_norm = 0.0
+    worst_m = worst_u = ""
+    n_ill = 0
+    for k, u in ref.items():
+        mo, m = ref_m[k], got["m"][k]
+        em = float((m - mo).double().norm()) / max(
+            float(mo.double().norm()), 1e-300)
+        d = (got["update"][k] - u).double()
+        well = mo.abs() >= floor
+        n_ill += int((~well).sum())
+        eu = float(d[well].abs().max()) / lr if bool(well.any()) else 0.0
+        if em > e_m:
+            e_m, worst_m = em, k
+        if eu > e_u:
+            e_u, worst_u = eu, k
+        e_norm = max(e_norm, float(d.norm()) / max(float(
+            u.double().norm()), 1e-300))
+    n_all = sum(u.numel() for u in ref.values())
+    u_max = max(float(u.abs().max()) for u in ref.values()) / lr
+    tokens_equal = all(r["tokens"] == ref_toks.cpu().tolist() for r in ranks)
+    sh_logits = torch.load(work / "logits_bf16.pt")
+    ref_logits = ref_logits.cpu()
+    scale = float(ref_logits.abs().max())
+    e_log = float((sh_logits - ref_logits).abs().max())
+    picks = torch.tensor(ranks[0]["bf16_picks"])
+    parted = []
+    for b, t in (picks != ref_picks.cpu()).nonzero().tolist():
+        top = ref_logits[b, t].topk(2).values
+        mine = sh_logits[b, t].topk(2).values
+        parted.append(f"seq {b} tick {t}: one device top-2 margin "
+                      f"{float(top[0] - top[1]):.4g}, sharded "
+                      f"{float(mine[0] - mine[1]):.4g}")
+    log(f"shard: qwen1.5-0.5b at full width on {SHARD_RANKS} ranks "
+        f"sharing cuda:0 (gloo), a (1, {SHARD_RANKS}) (data, model) mesh; "
+        f"the ranks took {t_ranks:.1f} s from spawn to join")
+    log(f"shard train {SHARD_BATCH} x {LM_SEQ} (float32): loss per rank "
+        f"{[r['loss'] for r in ranks]} (one device {ref_loss!r}, gate 1e-4 "
+        f"rel); first moment against one device's: {e_m:.3e} of its norm "
+        f"(gate 1e-4; worst leaf {worst_m}); update where the gradient is "
+        f"at least 1e-6: max abs {e_u:.3e} lr (gate 1e-2 lr; worst leaf "
+        f"{worst_u}; the largest update {u_max:.4f} lr), {n_ill} of {n_all} "
+        f"elements below it; update norm apart at most {e_norm:.3e} of a "
+        f"leaf's (logged); seconds per rank "
+        f"{[round(r['seconds'], 3) for r in ranks]}"
+        f" (one device {sec:.3f}); peak memory per rank "
+        f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB (one device "
+        f"{peak / 2**30:.2f}); parameter bytes per rank "
+        f"{[r['param_bytes'] for r in ranks]} (one device {one_bytes})")
+    log(f"shard decode: {SHARD_TICKS} greedy ticks of {SHARD_BATCH} "
+        f"sequences (float32), tokens equal to one device's: {tokens_equal};"
+        f" seconds per rank {[round(r['decode_seconds'], 3) for r in ranks]} "
+        f"(one device {tsec:.3f}); first sequence {ref_toks[0].tolist()}")
+    log(f"shard decode bf16, fed one device's tokens: logits max abs diff "
+        f"{e_log:.4e} (gate 5e-2 x {scale:.4g}); argmax apart in "
+        f"{len(parted)} of {picks.numel()} (sequence, tick)"
+        f"{': ' + '; '.join(parted) if parted else ''}; seconds per rank "
+        f"{[round(r['bf16_decode_seconds'], 3) for r in ranks]}")
+    for r, res in enumerate(ranks):
+        assert abs(res["loss"] - ref_loss) <= 1e-4 * abs(ref_loss), \
+            f"shard: rank {r}'s loss differs from one device's"
+        assert res["param_bytes"] < one_bytes, \
+            f"shard: rank {r} holds every parameter byte"
+    assert e_m <= 1e-4, \
+        f"shard: gradients differ from one device's ({worst_m})"
+    assert e_u <= 1e-2, f"shard: updates differ from one device's ({worst_u})"
+    assert tokens_equal, "shard: greedy tokens differ from one device's"
+    assert e_log <= 5e-2 * scale, "shard: bf16 logits differ"
+    shutil.rmtree(work)
+    log(f"shard: phase {time.perf_counter() - t0:.1f} s")
+    return {"ranks": ranks, "one_device_bytes": one_bytes}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=32768)
     ap.add_argument("--profile", default=None, metavar="DIR")
+    ap.add_argument("--dryrun-cells", default=None, metavar="JSON",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -3736,6 +4136,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    if args.dryrun_cells:       # path 15's subprocess
+        dryrun_cells(args.dryrun_cells)
+        return 0
 
     t_start = time.perf_counter()
     dev = device_line()
@@ -3755,6 +4158,8 @@ def main() -> int:
     elapsed("the LM path")
     fam = families_phase()
     elapsed("the other families")
+    model_sharding_phase()
+    elapsed("model sharding and the dry run")
     # each kernel's widest rank bucket on the ranked paths that launch it:
     # the sampling kernels' on the ranked main path, QR's, SVD's and
     # batched_gemm's (at that call's live ranks) on the ranked

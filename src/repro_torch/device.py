@@ -54,3 +54,9 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {dev} requested but no CUDA card is "
                            "present")
     return dev
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (a sharded model's tensor), without
+    importing ``torch.distributed.tensor`` for plain ones."""
+    return type(x).__name__ == "DTensor"

@@ -17,6 +17,7 @@ straight into its ``(R, ...)`` tensors.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -25,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .pshard import shard
+from ..device import is_dtensor
+from .pshard import local, reshape, shard
 
 # -- initializers ---------------------------------------------------------------
 
@@ -163,9 +165,9 @@ def _qkv(p, x, cfg, positions, rope: bool = True):
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    q = reshape(q, B, S, H, hd)
+    k = reshape(k, B, S, KV, hd)
+    v = reshape(v, B, S, KV, hd)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -242,9 +244,9 @@ def chunked_attention(q, k, v, *, causal: bool, k_chunk: int = 512,
     nq = Sq // q_chunk
     nk = Sk // k_chunk
 
-    qr = q.reshape(B, nq, q_chunk, KV, G, hd)
-    kr = k.reshape(B, nk, k_chunk, KV, hd).unbind(1)
-    vr = v.reshape(B, nk, k_chunk, KV, hd).unbind(1)
+    qr = reshape(q, B, nq, q_chunk, KV, G, hd)
+    kr = reshape(k, B, nk, k_chunk, KV, hd).unbind(1)
+    vr = reshape(v, B, nk, k_chunk, KV, hd).unbind(1)
     q_pos = (q_offset + torch.arange(Sq, device=q.device)).reshape(nq,
                                                                    q_chunk)
     k_pos = torch.arange(Sk, device=q.device).reshape(nk, k_chunk).unbind(0)
@@ -273,7 +275,9 @@ def attention_block(p, x, cfg, positions, *, causal=True, kv_override=None,
     q, k, v = _qkv(p, x, cfg, positions, rope=rope)
     if kv_override is not None:
         k, v = kv_override
-    out = chunked_attention(q, k, v, causal=causal)
+    heads = ("dp", None, "model", None)
+    out = local(functools.partial(chunked_attention, causal=causal),
+                ("dp", None, "model"), (heads, heads, heads), q, k, v)
     out = shard(out, "dp", None, "model")
     return out.to(x.dtype) @ p["wo"]
 
@@ -282,11 +286,12 @@ def cross_kv(p, ctx, cfg):
     """K/V projections of a context sequence (encoder out / image tokens)."""
     B, T, _ = ctx.shape
     KV, hd = cfg.num_kv_heads, cfg.hd
-    k = (ctx @ p["wk"]).reshape(B, T, KV, hd)
-    v = (ctx @ p["wv"]).reshape(B, T, KV, hd)
+    ctx = shard(ctx, "dp", None, None)      # the sequence whole on a rank
+    k = reshape(ctx @ p["wk"], B, T, KV, hd)
+    v = reshape(ctx @ p["wv"], B, T, KV, hd)
     if "bk" in p:
-        k = k + p["bk"].reshape(KV, hd)
-        v = v + p["bv"].reshape(KV, hd)
+        k = k + reshape(p["bk"], KV, hd)
+        v = v + reshape(p["bv"], KV, hd)
     return k, v
 
 
@@ -332,33 +337,56 @@ def decode_attention(p, x, cfg, cache: KVCache, cache_len, *, rope=True):
     at = min(max(cache_len, 0), S - 1)
     cache.k[:, at] = _kv_quant(k[:, 0], cache.k.dtype)
     cache.v[:, at] = _kv_quant(v[:, 0], cache.v.dtype)
+    heads = ("dp", None, "model", None)
+    out = local(functools.partial(_decode_attend, cache_len=cache_len),
+                ("dp", None, "model"), (heads, heads, heads),
+                q, cache.k, cache.v)
+    return out.to(x.dtype) @ p["wo"], cache
+
+
+def _decode_attend(q, ck, cv, cache_len: int):
+    """One query position against a cache's first ``cache_len + 1``
+    positions: q (B, 1, H, hd), ck / cv (B, S, KV, hd) -> (B, 1, H hd)."""
+    B, _, H, hd = q.shape
+    S, KV = ck.shape[1], ck.shape[2]
+    G = H // KV
     qh = q.reshape(B, KV, G, hd)
     logits = torch.einsum("bkgd,bskd->bkgs", qh.float(),
-                          _kv_dequant(cache.k, torch.float32)
+                          _kv_dequant(ck, torch.float32)
                           ) * float(1.0 / np.sqrt(hd))
-    valid = torch.arange(S, device=x.device) <= cache_len
+    valid = torch.arange(S, device=q.device) <= cache_len
     logits = torch.where(valid[None, None, None, :], logits, _NEG)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs,
-                       _kv_dequant(cache.v, torch.float32))
-    out = out.reshape(B, 1, H * hd).to(x.dtype)
-    return out @ p["wo"], cache
+                       _kv_dequant(cv, torch.float32))
+    return out.reshape(B, 1, H * hd)
 
 
 def decode_cross_attention(p, x, cfg, ckv: KVCache):
     """One-token cross-attention against a fixed (precomputed) context KV."""
     B = x.shape[0]
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    G = H // KV
+    H, hd = cfg.num_heads, cfg.hd
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    qh = q.reshape(B, KV, G, hd)
+    q = reshape(q, B, 1, H, hd)
+    heads = ("dp", None, "model", None)
+    out = local(_cross_attend, ("dp", None, "model"), (heads, heads, heads),
+                q, ckv.k, ckv.v)
+    return out.to(x.dtype) @ p["wo"]
+
+
+def _cross_attend(q, ck, cv):
+    """One query position against a whole context: q (B, 1, H, hd),
+    ck / cv (B, T, KV, hd) -> (B, 1, H hd)."""
+    B, _, H, hd = q.shape
+    KV = ck.shape[2]
+    qh = q.reshape(B, KV, H // KV, hd)
     logits = torch.einsum("bkgd,bskd->bkgs", qh.float(),
-                          ckv.k.float()) * float(1.0 / np.sqrt(hd))
+                          ck.float()) * float(1.0 / np.sqrt(hd))
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", probs, ckv.v.float())
-    return out.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"]
+    out = torch.einsum("bkgs,bskd->bkgd", probs, cv.float())
+    return out.reshape(B, 1, H * hd)
 
 
 # -- MLP -------------------------------------------------------------------------
@@ -399,13 +427,46 @@ def init_embeddings(gen, cfg, dtype, device):
 
 
 def embed(p, tokens):
+    if is_dtensor(p["tok"]):
+        return _vocab_local(_embed_rows, p["tok"], ("model", None), tokens,
+                            ("dp", None, None))
     return p["tok"][tokens.long()]
+
+
+def _embed_rows(tok, ids, tokens):
+    """The rows of a block of the table (``ids``: the block's row numbers)
+    for ``tokens``; zero where a token's row lies in another block."""
+    idx = tokens.long() - ids[:1].long()
+    hit = (idx >= 0) & (idx < tok.shape[0])
+    rows = tok[idx.clamp(0, tok.shape[0] - 1)]
+    return rows * hit[..., None].to(rows.dtype)
+
+
+def _vocab_local(fn, x, x_names, idx, out_names):
+    """``fn(x's block, the block's token numbers, idx)`` on each rank
+    (``pshard.local``), where ``x`` is split over the vocabulary at the dim
+    ``x_names`` names "model": each model rank answers for the tokens its
+    block holds, zeros for the others, and the sum over the model ranks is
+    pending. ``idx`` keeps its data-parallel split, and the result has it.
+    Megatron's vocab-parallel embedding and CE pick: DTensor's own gather
+    and its backward fail on a tensor split over the gathered dim in some
+    releases."""
+    ids = torch.arange(x.shape[x_names.index("model")], device=idx.device)
+    return local(fn, out_names, (x_names, ("model",),
+                                 ("dp",) + (None,) * (idx.ndim - 1)),
+                 x, ids, idx, partial="model")
 
 
 def unembed_logits(p, h):
     if "head" in p:
-        return h @ p["head"]
-    return h @ p["tok"].T
+        return local(torch.matmul, ("dp", None, "model"),
+                     (("dp", None, None), (None, "model")), h, p["head"])
+    return local(_times_transpose, ("dp", None, "model"),
+                 (("dp", None, None), ("model", None)), h, p["tok"])
+
+
+def _times_transpose(h, w):
+    return h @ w.T
 
 
 def chunked_ce_loss(p_emb, h, labels, *, chunk: int = 512):
@@ -419,15 +480,19 @@ def chunked_ce_loss(p_emb, h, labels, *, chunk: int = 512):
     chunk = min(chunk, S)
     assert S % chunk == 0
     n = S // chunk
-    hs = h.reshape(B, n, chunk, D).unbind(1)
+    h = shard(h, "dp", None, None)          # the sequence whole on a rank
+    hs = reshape(h, B, n, chunk, D).unbind(1)
     ls = labels.reshape(B, n, chunk).long().unbind(1)
 
     def chunk_ce(hc, lc):
         logits = unembed_logits(p_emb, hc).float()
         logits = shard(logits, "dp", None, "model")
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1,
-                              torch.clamp(lc, min=0)[..., None])[..., 0]
+        if is_dtensor(logits):
+            lse, picked = _vocab_parallel_lse_pick(logits, lc)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            picked = torch.gather(logits, -1,
+                                  torch.clamp(lc, min=0)[..., None])[..., 0]
         mask = (lc >= 0).float()
         return ((lse - picked) * mask).sum(), mask.sum()
 
@@ -438,3 +503,53 @@ def chunked_ce_loss(p_emb, h, labels, *, chunk: int = 512):
         tot = tot + t
         cnt = cnt + c
     return tot / torch.clamp(cnt, min=1.0)
+
+
+
+def _vocab_parallel_lse_pick(logits, labels):
+    """Log-sum-exp and label logit of vocab-sharded logits (a DTensor),
+    Megatron's vocab-parallel cross-entropy: each model rank reduces its
+    block of the vocabulary (its max, then its sum of exponentials) and
+    picks the labels its block holds (``_pick_sharded``); one all-reduce
+    of a (batch, chunk) tensor each completes them. No rank holds more
+    than its block of the logits. Within rounding of ``logsumexp`` /
+    ``gather``."""
+    m = _vocab_reduce(_block_max, "max", logits)
+    s = _vocab_reduce(_block_sumexp, "sum", logits, m)
+    return torch.log(s) + m, _pick_sharded(logits, labels)
+
+
+def _block_max(logits):
+    return logits.detach().amax(-1)
+
+
+def _block_sumexp(logits, m):
+    return torch.exp(logits - m[..., None]).sum(-1)
+
+
+def _vocab_reduce(fn, op: str, logits, *rest):
+    """``fn(logits, *rest)``, a reduction over the vocabulary, each rank on
+    its block (``pshard.local``), then completed across the vocabulary's
+    ranks by an all-reduce of ``op``; ``rest`` are whole over the vocab
+    (placed as the result)."""
+    part = local(fn, ("dp", None), (("dp", None, "model"),) +
+                 (("dp", None),) * len(rest), logits, *rest,
+                 partial="model", reduce=op)
+    return shard(part, "dp", None)
+
+
+def _pick_rows(logits, ids, labels):
+    """The logit of each label in a block of the vocabulary (``ids``: the
+    block's token numbers); zero where the label lies in another block."""
+    idx = torch.clamp(labels, min=0).long() - ids[:1].long()
+    hit = (idx >= 0) & (idx < logits.shape[-1])
+    picked = torch.gather(logits, -1,
+                          idx.clamp(0, logits.shape[-1] - 1)[..., None])
+    return picked[..., 0] * hit.to(logits.dtype)
+
+
+def _pick_sharded(logits, labels):
+    """``gather`` of the labels' logits from vocab-sharded logits, each
+    model rank on its block (``_vocab_local``)."""
+    return _vocab_local(_pick_rows, logits, ("dp", None, "model"), labels,
+                        ("dp", None))

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import _dense_init
-from .pshard import shard
+from .pshard import local, reshape, shard, splits
 
 
 def init_moe(gen, cfg, dtype, device):
@@ -74,11 +74,35 @@ def _route(p, xg, cfg):
     # flatten slots in (slot-major, token) order so top-1 picks win
     # positions. torch.cumsum of int32 gives int64; both are exact.
     sel = F.one_hot(gate_idx, E).to(torch.int32)           # (G, gs, K, E)
-    sel_flat = sel.permute(0, 2, 1, 3).reshape(G, K * gs, E)
+    sel_flat = reshape(sel.permute(0, 2, 1, 3), G, K * gs, E)
     pos_flat = torch.cumsum(sel_flat, dim=1) - sel_flat    # (G, K*gs, E)
-    pos = pos_flat.reshape(G, K, gs, E).permute(0, 2, 1, 3)
+    pos = reshape(pos_flat, G, K, gs, E).permute(0, 2, 1, 3)
     pos = (pos * sel).sum(-1)                              # (G, gs, K)
     return probs, gate_vals, gate_idx, sel, pos, C
+
+
+def _dispatch(dispatch, xg):
+    return torch.einsum("gtec,gtd->gecd", dispatch, xg)
+
+
+def _combine(combine, ye):
+    return torch.einsum("gtec,gecd->gtd", combine, ye)
+
+
+def _experts(xe, *ws):
+    """The experts' MLPs on their capacity buffers: (G, E, C, D) ->
+    (G, E, C, D); ``ws`` is (wg, wu, wd) for SwiGLU, (wi, wo) for GELU."""
+    if len(ws) == 3:
+        wg, wu, wd = ws
+        h = F.silu(torch.einsum("gecd,edf->gecf", xe, wg))
+        h = h * torch.einsum("gecd,edf->gecf", xe, wu)
+        h = shard(h, "dp", "model", None, None)
+        return torch.einsum("gecf,efd->gecd", h, wd)
+    wi, wo = ws
+    h = F.gelu(torch.einsum("gecd,edf->gecf", xe, wi), approximate="tanh")
+    h = shard(h, "dp", "model", None, None)
+    return torch.einsum("gecf,efd->gecd", h, wo)
+
 
 
 def apply_moe(p, x, cfg):
@@ -91,7 +115,7 @@ def apply_moe(p, x, cfg):
     assert tokens % gs == 0, "token count must divide into dispatch groups"
     G = tokens // gs
 
-    xg = shard(x.reshape(G, gs, D), "dp", None, None)
+    xg = shard(reshape(x, G, gs, D), "dp", None, None)
     probs, gate_vals, gate_idx, sel, pos, C = _route(p, xg, cfg)
 
     # Load-balance auxiliary loss (Switch): E * sum_e f_e * P_e.
@@ -111,22 +135,35 @@ def apply_moe(p, x, cfg):
     combine = shard(combine, "dp", None, "model", None)
     dispatch = shard((combine > 0).to(x.dtype), "dp", None, "model", None)
 
-    xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)      # (G, E, C, D)
+    xe = local(_dispatch, ("dp", "model", None, None),
+               (("dp", None, "model", None), ("dp", None, None)),
+               dispatch, xg)                               # (G, E, C, D)
     xe = shard(xe, "dp", "model", None, None)
-    if "wg" in p:
-        h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["wg"]))
-        h = h * torch.einsum("gecd,edf->gecf", xe, p["wu"])
-        h = shard(h, "dp", "model", None, None)
-        ye = torch.einsum("gecf,efd->gecd", h, p["wd"])
+    names = ("wg", "wu", "wd") if "wg" in p else ("wi", "wo")
+    ws = [p[n] for n in names]
+    # sharded: each rank runs its experts on their buffers where the model
+    # axis divides E (expert parallelism, as param_spec splits E), else its
+    # slice of every expert's hidden units (TP inside the experts: the
+    # down projection a pending sum). (DTensor's own einsums fail in the
+    # backward pass: they reshape blocks whose strides differ from the
+    # whole tensor's.)
+    if splits(E, "model"):
+        x_n, w_n, part = ("dp", "model", None, None), \
+            [("model", None, None)] * len(ws), None
     else:
-        h = F.gelu(torch.einsum("gecd,edf->gecf", xe, p["wi"]),
-                   approximate="tanh")
-        h = shard(h, "dp", "model", None, None)
-        ye = torch.einsum("gecf,efd->gecd", h, p["wo"])
+        x_n, part = ("dp", None, None, None), "model"
+        w_n = [(None, None, "model")] * (len(ws) - 1) + \
+            [(None, "model", None)]
+    ye = local(_experts, x_n, (x_n, *w_n), xe, *ws, partial=part)
     ye = shard(ye, "dp", "model", None, None)
-    y = torch.einsum("gtec,gecd->gtd", combine, ye)
+    # each rank sums its experts' outputs, the sum over the model ranks
+    # pending (DTensor folds the (expert, slot) contraction into one dim,
+    # which some releases refuse for a split dim)
+    y = local(_combine, ("dp", None, None), (
+        ("dp", None, "model", None), ("dp", "model", None, None)),
+        combine, ye, partial="model")
 
     if m.shared_expert:
         sh = p["shared"]
         y = y + (F.silu(xg @ sh["wg"]) * (xg @ sh["wu"])) @ sh["wd"]
-    return y.reshape(B, S, D), aux
+    return reshape(y, B, S, D), aux

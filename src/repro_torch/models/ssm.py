@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .layers import _dense_init
-from .pshard import shard
+from .pshard import local, reshape, shard
 
 
 def init_ssm(gen, cfg, dtype, device):
@@ -123,6 +123,16 @@ def _chunk_step(state, xc, Bq, Cq, dtc, dtAc):
     return state, y_diag + y_off
 
 
+# the symbolic names of _chunk_step's arguments and outputs: independent
+# across batch and heads
+_STATE = ("dp", "model", None, None)
+_HEADS4 = ("dp", None, "model", None)
+_HEADS3 = ("dp", None, "model")
+_HEADS2 = ("dp", "model", None)
+_CHUNK_IN = (_STATE, _HEADS4, ("dp", None, None), ("dp", None, None),
+             _HEADS3, _HEADS3)
+
+
 def ssd_forward(p, x_in, cfg):
     """Full-sequence SSD; x_in: (B, L, D) -> (B, L, D).
 
@@ -135,23 +145,27 @@ def ssd_forward(p, x_in, cfg):
     assert L % Q == 0, "sequence must be a multiple of the SSD chunk"
     nc = L // Q
 
-    xproj = x_in @ p["w_in"]
+    # whole on a rank before it is split into its parts (DTensor refuses,
+    # in some releases, to split a dim sharded over the model axis)
+    xproj = shard(x_in @ p["w_in"], "dp", None, None)
     x, z, Bc, Cc, dt, din, nh = _split_proj(p, xproj, cfg)
     hd, N = s.head_dim, s.d_state
 
     conv_in = torch.cat([x, Bc, Cc], dim=-1)
-    conv_out = F.silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"]))
+    conv_out = F.silu(local(_causal_conv, ("dp", None, None),
+                            (("dp", None, None), (None, None), (None,)),
+                            conv_in, p["conv_w"], p["conv_b"]))
     x, Bc, Cc = torch.split(conv_out, [din, N, N], dim=-1)
 
     dt = F.softplus(dt.float() + p["dt_bias"])                    # (B, L, nh)
     A = -torch.exp(p["A_log"])                                     # (nh,)
     dtA = dt * A                                                   # (B, L, nh)
 
-    xh = x.reshape(B, nc, Q, nh, hd).float()
-    Br = Bc.reshape(B, nc, Q, N).float()
-    Cr = Cc.reshape(B, nc, Q, N).float()
-    dtr = dt.reshape(B, nc, Q, nh)
-    dtAr = dtA.reshape(B, nc, Q, nh)
+    xh = reshape(x, B, nc, Q, nh, hd).float()
+    Br = reshape(Bc, B, nc, Q, N).float()
+    Cr = reshape(Cc, B, nc, Q, N).float()
+    dtr = reshape(dt, B, nc, Q, nh)
+    dtAr = reshape(dtA, B, nc, Q, nh)
 
     xh = shard(xh, "dp", None, None, "model", None)
     dtr = shard(dtr, "dp", None, None, "model")
@@ -159,10 +173,13 @@ def ssd_forward(p, x_in, cfg):
 
     # One chunk's decay matrix (B, nh, Q, Q) at a time; each chunk body is
     # recomputed in the backward pass instead of keeping all nc of them.
-    step = _chunk_step
+    def chunk(*args):
+        return local(_chunk_step, (_STATE, _HEADS4), _CHUNK_IN, *args)
+
+    step = chunk
     if torch.is_grad_enabled():
         def step(*args):
-            return checkpoint(_chunk_step, *args, use_reentrant=False)
+            return checkpoint(chunk, *args, use_reentrant=False)
     state = torch.zeros((B, nh, hd, N), dtype=torch.float32,
                         device=x_in.device)
     ys = []
@@ -170,9 +187,9 @@ def ssd_forward(p, x_in, cfg):
         state, yc = step(state, xh[:, c], Br[:, c], Cr[:, c], dtr[:, c],
                          dtAr[:, c])
         ys.append(yc)
-    y = torch.stack(ys, dim=1).reshape(B, L, nh, hd)
-    y = y + xh.reshape(B, L, nh, hd) * p["D_skip"][None, None, :, None]
-    y = y.reshape(B, L, din).to(x_in.dtype)
+    y = reshape(torch.stack(ys, dim=1), B, L, nh, hd)
+    y = y + reshape(xh, B, L, nh, hd) * p["D_skip"][None, None, :, None]
+    y = reshape(y, B, L, din).to(x_in.dtype)
     # gated RMS norm (mamba2's norm-before-out)
     y = y * F.silu(z)
     yf = y.float()
@@ -193,11 +210,22 @@ def ssm_init_state(cfg, batch: int, dtype, device=None) -> SSMState:
     )
 
 
+def _recur(xh, dt, dtA, Bc, Cc, ssm, D_skip):
+    """One step of the SSD recurrence: xh (B, nh, hd), dt and dt * A
+    (B, nh), Bc / Cc (B, N), the state (B, nh, hd, N) -> (y (B, nh, hd),
+    the new state)."""
+    dec = torch.exp(dtA)                                          # (B, nh)
+    ssm = ssm * dec[..., None, None] + torch.einsum(
+        "bhd,bn->bhdn", xh * dt[..., None], Bc.float())
+    y = torch.einsum("bn,bhdn->bhd", Cc.float(), ssm)
+    return y + xh * D_skip[None, :, None], ssm
+
+
 def ssd_decode_step(p, x_in, cfg, state: SSMState):
     """One-token recurrent step; x_in: (B, 1, D) -> (out, new_state)."""
     s = cfg.ssm
     B = x_in.shape[0]
-    xproj = x_in[:, 0] @ p["w_in"]
+    xproj = shard(x_in[:, 0] @ p["w_in"], "dp", None)
     x, z, Bc, Cc, dt, din, nh = _split_proj(p, xproj, cfg)
     hd, N = s.head_dim, s.d_state
 
@@ -210,13 +238,12 @@ def ssd_decode_step(p, x_in, cfg, state: SSMState):
 
     dt = F.softplus(dt.float() + p["dt_bias"])                    # (B, nh)
     A = -torch.exp(p["A_log"])
-    dec = torch.exp(dt * A)                                       # (B, nh)
-    xh = x.reshape(B, nh, hd).float()
-    ssm = state.ssm * dec[..., None, None] + torch.einsum(
-        "bhd,bn->bhdn", xh * dt[..., None], Bc.float())
-    y = torch.einsum("bn,bhdn->bhd", Cc.float(), ssm)
-    y = y + xh * p["D_skip"][None, :, None]
-    y = y.reshape(B, din).to(x_in.dtype)
+    xh = reshape(x, B, nh, hd).float()
+    y, ssm = local(_recur, (_HEADS2, _STATE), (
+        _HEADS2, ("dp", "model"), ("dp", "model"), ("dp", None),
+        ("dp", None), _STATE, ("model",)), xh, dt, dt * A, Bc, Cc,
+        state.ssm, p["D_skip"])
+    y = reshape(y, B, din).to(x_in.dtype)
     y = y * F.silu(z)
     yf = y.float()
     y = (yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6)

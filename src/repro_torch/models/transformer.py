@@ -41,7 +41,7 @@ from . import moe as MOE
 from . import ssm as SSM
 from .config import ModelConfig
 from .layers import KVCache
-from .pshard import shard
+from .pshard import fsdp_gather, shard
 
 
 def _generator(seed: Union[int, torch.Generator], device):
@@ -126,32 +126,53 @@ def _unstack(tree: dict, R: int) -> list[dict]:
 # -- forward (full-sequence) --------------------------------------------------------
 
 
+def _gather_seq(h):
+    """A block's normed input with its sequence whole on each model rank:
+    the sequence-parallel carry gathered before the tensor-parallel
+    projections, as Megatron-SP does (XLA gathers it there too); in
+    decode, the pending sum of the model ranks' partial outputs reduced,
+    so that a column-parallel projection splits its work. Only a sharded
+    run sees it: without a hook ``shard`` is the identity."""
+    return shard(h, "dp", None, None)
+
+
+def _scatter_seq(y):
+    """A sublayer's output on the carry's layout (reduce-scattered over
+    the sequence, as Megatron-SP does), so that its gradient reaches the
+    sublayer's projections in their own layout and not split over the
+    sequence (which DTensor plans by a slow graph search)."""
+    return shard(y, "dp", "model", None)
+
+
 def _apply_block(bp, x, cfg: ModelConfig, mixer: str, mlp: str, positions,
                  ctx, causal: bool):
     """One block: (x, the MoE auxiliary loss or None)."""
     aux = None
-    h = L.apply_norm(bp["norm1"], x, cfg.norm)
+    bp = fsdp_gather(bp)
+    h = _gather_seq(L.apply_norm(bp["norm1"], x, cfg.norm))
     if mixer == "attn":
-        x = x + L.attention_block(bp["mixer"], h, cfg, positions,
-                                  causal=causal)
+        x = x + _scatter_seq(L.attention_block(bp["mixer"], h, cfg,
+                                               positions, causal=causal))
     elif mixer == "cross":
         kv = L.cross_kv(bp["mixer"], ctx, cfg)
-        x = x + L.attention_block(bp["mixer"], h, cfg, positions,
-                                  causal=False, kv_override=kv, rope=False)
+        x = x + _scatter_seq(L.attention_block(
+            bp["mixer"], h, cfg, positions, causal=False, kv_override=kv,
+            rope=False))
     else:
-        x = x + SSM.ssd_forward(bp["mixer"], h, cfg)
+        x = x + _scatter_seq(SSM.ssd_forward(bp["mixer"], h, cfg))
     if cfg.family == "audio" and ctx is not None:
-        hc = L.apply_norm(bp["norm_c"], x, cfg.norm)
+        hc = _gather_seq(L.apply_norm(bp["norm_c"], x, cfg.norm))
         kv = L.cross_kv(bp["cross"], ctx, cfg)
-        x = x + L.attention_block(bp["cross"], hc, cfg, positions,
-                                  causal=False, kv_override=kv, rope=False)
+        x = x + _scatter_seq(L.attention_block(
+            bp["cross"], hc, cfg, positions, causal=False, kv_override=kv,
+            rope=False))
     if mlp == "moe":
-        h2 = L.apply_norm(bp["norm2"], x, cfg.norm)
+        h2 = _gather_seq(L.apply_norm(bp["norm2"], x, cfg.norm))
         y, aux = MOE.apply_moe(bp["mlp"], h2, cfg)
-        x = x + y
+        x = x + _scatter_seq(y)
     elif cfg.d_ff > 0:
-        h2 = L.apply_norm(bp["norm2"], x, cfg.norm)
-        x = x + L.apply_mlp(bp["mlp"], h2, cfg.act)
+        h2 = _gather_seq(L.apply_norm(bp["norm2"], x, cfg.norm))
+        x = x + _scatter_seq(L.apply_mlp(bp["mlp"], h2, cfg.act))
     return x, aux
 
 
@@ -206,10 +227,12 @@ def apply_encoder(params, frames, cfg: ModelConfig):
         B, S, _ = x.shape
         pos = torch.arange(S, dtype=torch.int32,
                            device=x.device)[None].expand(B, S)
-        h = L.apply_norm(bp["norm1"], x, cfg.norm)
-        x = x + L.attention_block(bp["mixer"], h, cfg, pos, causal=False)
-        h2 = L.apply_norm(bp["norm2"], x, cfg.norm)
-        return x + L.apply_mlp(bp["mlp"], h2, cfg.act)
+        bp = fsdp_gather(bp)
+        h = _gather_seq(L.apply_norm(bp["norm1"], x, cfg.norm))
+        x = x + _scatter_seq(L.attention_block(bp["mixer"], h, cfg, pos,
+                                               causal=False))
+        h2 = _gather_seq(L.apply_norm(bp["norm2"], x, cfg.norm))
+        return x + _scatter_seq(L.apply_mlp(bp["mlp"], h2, cfg.act))
 
     step = body
     if cfg.remat:       # jax.checkpoint(body): the default policy
@@ -299,8 +322,8 @@ def serve_step(params, caches, token, cache_len, cfg: ModelConfig):
     layers = [_unstack(bp, R) for bp in params["blocks"]]
     for r in range(R):
         for i, (mixer, mlp) in enumerate(pat):
-            bp, c = layers[i][r], caches[i]
-            h = L.apply_norm(bp["norm1"], x, cfg.norm)
+            bp, c = fsdp_gather(layers[i][r]), caches[i]
+            h = _gather_seq(L.apply_norm(bp["norm1"], x, cfg.norm))
             if mixer == "attn":
                 out, _ = L.decode_attention(bp["mixer"], h, cfg,
                                             KVCache(c.k[r], c.v[r]),
@@ -315,16 +338,16 @@ def serve_step(params, caches, token, cache_len, cfg: ModelConfig):
                 c.ssm[r].copy_(new.ssm)
             x = x + out
             if cfg.family == "audio":
-                hc = L.apply_norm(bp["norm_c"], x, cfg.norm)
+                hc = _gather_seq(L.apply_norm(bp["norm_c"], x, cfg.norm))
                 cc = caches[len(pat) + i]
                 x = x + L.decode_cross_attention(bp["cross"], hc, cfg,
                                                  KVCache(cc.k[r], cc.v[r]))
             if mlp == "moe":
-                h2 = L.apply_norm(bp["norm2"], x, cfg.norm)
+                h2 = _gather_seq(L.apply_norm(bp["norm2"], x, cfg.norm))
                 y, _ = MOE.apply_moe(bp["mlp"], h2, cfg)
                 x = x + y
             elif cfg.d_ff > 0:
-                h2 = L.apply_norm(bp["norm2"], x, cfg.norm)
+                h2 = _gather_seq(L.apply_norm(bp["norm2"], x, cfg.norm))
                 x = x + L.apply_mlp(bp["mlp"], h2, cfg.act)
     h = L.apply_norm(params["final_norm"], x, cfg.norm)
     return L.unembed_logits(params["emb"], h), caches

@@ -11,6 +11,8 @@ its step from the difference). ``moment_dtype=bfloat16`` halves the
 optimizer state. A leaf larger than ``_CHUNK`` elements is updated in
 slices (the same bits), so the update holds little beyond the old and the
 new state (granite-moe's stacked expert leaves hold 1.0 B elements each).
+On a sharded model (DTensor leaves) each rank updates its block of a
+leaf.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..device import torch_dtype
+from ..device import is_dtensor, torch_dtype
 from ..tree import leaves, tree_map, unflatten
 
 
@@ -58,6 +60,7 @@ def global_norm(tree) -> torch.Tensor:
                                    for x in leaves(tree)]).sum())
 
 
+
 # Elements of a leaf updated at a time (float32 temporaries of 256 MiB).
 _CHUNK = 1 << 26
 
@@ -85,6 +88,8 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
         return newp.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
 
     def upd(g, m, v, p):
+        if is_dtensor(p):
+            return upd_blocks(g, m, v, p)
         if p.numel() <= _CHUNK:
             return upd_flat(g, m, v, p)
         # elementwise, so a leaf updated in slices gives the same bits
@@ -97,6 +102,20 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
                 d[a:a + _CHUNK] = x
         return out
 
+    def upd_blocks(g, m, v, p):
+        # a DTensor leaf (a sharded model): elementwise, so each rank
+        # updates its block of the leaf, with every tensor at the
+        # parameter's placements
+        mesh, places = p.device_mesh, p.placements
+        blocks = [x.redistribute(mesh, places).to_local() for x in (g, m, v)]
+        out = upd(*blocks, p.to_local())
+        return tuple(type(p).from_local(o, mesh, places, run_check=False,
+                                        shape=p.shape, stride=p.stride())
+                     for o in out)
+
+    if is_dtensor(clip):       # the scalars whole on every rank
+        clip, bc1, bc2 = (x.full_tensor() if is_dtensor(x) else x
+                          for x in (clip, bc1, bc2))
     out = [upd(*xs) for xs in zip(leaves(grads), leaves(state.m),
                                   leaves(state.v), leaves(params))]
     new_params = unflatten(params, [o[0] for o in out])

@@ -47,11 +47,9 @@ def test_every_jax_core_name_is_ported_or_listed():
 
 LM_PACKAGES = ("models", "optim", "train", "data", "checkpoint", "configs")
 # JAX modules of those packages the port does not have yet, and public
-# names of ported modules it lacks: ``make_mesh_hook``, which goes with the
-# model half of ``launch/sharding.py`` on a device mesh (ROADMAP Queue 1
-# item 10, step 2).
+# names of ported modules it lacks. None is left.
 LM_DEFERRED_MODULES: set[str] = set()
-LM_DEFERRED_NAMES = {"models/pshard.py": {"make_mesh_hook"}}
+LM_DEFERRED_NAMES: dict[str, set[str]] = {}
 
 
 def _public_names(path: Path) -> list[str]:
@@ -98,3 +96,56 @@ def test_lm_modules_are_ported_or_listed():
                     assert not hasattr(mod, name), f"{rel}:{name} unlist it"
                 else:
                     assert hasattr(mod, name), f"repro_torch/{rel}: {name}"
+
+
+# -- launch: meshes, sharding, cost model, dry run, roofline, report ---------------
+
+# Public names of ``repro/launch/*.py`` that exist only because of XLA or
+# of the JAX package's files, each with the port's counterpart.
+LAUNCH_JAX_ONLY = {
+    "costmodel.py": {
+        # the jaxpr walker: the port counts an eager step's aten ops
+        "jaxpr_cost": "costmodel.step_cost",
+        # HLO parsing with while-loop trips: an eager step runs every trip,
+        # and its collectives are ops that CommDebugMode counts
+        "parse_collectives_trips": "CommDebugMode + costmodel.CostMode",
+    },
+    "dryrun.py": {
+        "parse_collectives": "CommDebugMode + costmodel.CostMode",
+    },
+    "roofline.py": {
+        # one ICI rate for every collective: the port takes a rate per link
+        "ICI_BW": "roofline.LINK_BW",
+    },
+    "report.py": {
+        # the repo root, where JAX's report rewrites EXPERIMENTS.md: the
+        # port prints its tables or writes them to the path given
+        "ROOT": "report.main(--out)",
+    },
+}
+
+
+def test_launch_modules_are_ported_or_listed():
+    import importlib
+    src = ROOT / "src" / "repro" / "launch"
+    paths = sorted(p for p in src.glob("*.py") if p.name != "__init__.py")
+    assert [p.name for p in paths] == [
+        "costmodel.py", "dryrun.py", "mesh.py", "report.py", "roofline.py",
+        "serve.py", "sharding.py", "train.py"]
+    for path in paths:
+        port_path = ROOT / "src" / "repro_torch" / "launch" / path.name
+        assert port_path.exists(), f"repro_torch/launch/{path.name}"
+        mod = importlib.import_module(f"repro_torch.launch.{path.stem}")
+        jax_only = LAUNCH_JAX_ONLY.get(path.name, {})
+        for name in _public_names(path):
+            if name in jax_only:
+                assert not hasattr(mod, name), f"{path.name}:{name} unlist it"
+                for ref in jax_only[name].split(" + "):
+                    owner, _, attr = ref.partition(".")
+                    if attr:        # the port's counterpart exists
+                        cmod = importlib.import_module(
+                            f"repro_torch.launch.{owner}")
+                        assert hasattr(cmod, attr.split("(")[0]), ref
+            else:
+                assert hasattr(mod, name), f"repro_torch/launch/{path.name}: {name}"
+    from torch.distributed.tensor.debug import CommDebugMode  # noqa: F401
