@@ -30,7 +30,10 @@ before it and read just after:
    operator at N = 16384, tile 512 built on the card, compressed at 1e-10,
    ``tlr_add_diag(op.A, eps)`` factored by the left-looking Cholesky at
    eps = 1e-2 and 1e-4, each used by ``pcg`` as the preconditioner of the
-   compressed operator, then unpreconditioned ``pcg``; gated on the final
+   compressed operator, then unpreconditioned ``pcg`` (the sampling
+   kernels' launches per shape are then timed apart, launches x kernel ms
+   against launches x bound ms, summed over all shapes and over those past
+   width 128 beside the factorizations' seconds); gated on the final
    relative residual (< 1e-6), ``||K x - b|| / ||b|| < 1e-5`` against the
    dense K, and fewer iterations at 1e-2 than without, no more at 1e-4;
 5. the Newton-Schulz path: the same generator at N = 8192, tile 128,
@@ -168,7 +171,9 @@ are also held at the rank-bucket widths of ranked batching (width 1 to
 128, zero-tile count padding), at each kernel's widest bucket on its
 ranked path, at each kernel's widest shape on the two
 fractional-diffusion paths and at the sampling kernels' widest tile-32
-shape on the TLR-KFAC path. Kernel times are CUDA events
+shape on the TLR-KFAC path; the two sampling kernels also in f64 at widths
+129, 256, 384 and 512 (their tensor-core kernels past r = 128), at b = 512
+and ragged. Kernel times are CUDA events
 over back-to-back calls; a sampling kernel's case under DISPATCH_MS is
 also timed from a CUDA graph (``graph_ms`` and its kin beside ``ms``),
 since the host's dispatch sets the pace of back-to-back calls there.
@@ -337,6 +342,12 @@ PATH_BS = {"kfac": (KFAC_TILE, KFAC_BS)}
 # Label prefix of the kernel cases at the widest rank bucket a ranked path
 # gave each kernel (``widest_bucket``).
 RANKED_HEAD = "ranked widest bucket"
+# Label prefix of the sampling kernels' f64 cases past r = 128 (the
+# tensor-core kernels of 128 < r <= 512; checked in f64 only, since f32 and
+# bf16 run the FMA kernels there as at every width), at each (width, row
+# stride of the ragged case) of WIDE_WIDTHS.
+WIDE_HEAD = "f64 past r=128"
+WIDE_WIDTHS = ((129, 160), (256, 259), (384, 512), (512, 515))
 
 
 def log(msg: str) -> None:
@@ -448,7 +459,7 @@ def build_kernels() -> None:
         log(f"  ptxas {name}: {len(regs)} kernels, registers "
             f"{min(regs, default=0)}-{max(regs, default=0)}, "
             f"spill stores max {max(spills, default=0)} B")
-        if name in ("small_svd", "batched_qr"):
+        if name in ("small_svd", "batched_qr", "tile_chain", "lr_sample"):
             # each kernel: its entry, then registers and spills
             for line in text.splitlines():
                 if "Compiling entry" in line or "spill stores" in line \
@@ -746,8 +757,10 @@ def kernel_cases(torch, ranks_a, device="cuda", ranked=None):
          chain(3, 96, 24, 70)),
         ("tile_chain", "ragged T*J=1891 b=500 ldr=128 width=100 s=128", False,
          chain(1891, 500, 128, 128, width=100)),
-        ("tile_chain", "FMA past the tensor cores T=3 b=100 ldr=160 width=129 s=70",
-         False, chain(3, 100, 160, 70, width=129)),
+        ("tile_chain", "past r=128 T=3 b=100 ldr=160 width=129 s=70", False,
+         chain(3, 100, 160, 70, width=129)),
+        ("tile_chain", "FMA past r=512 T=2 b=100 ldr=640 width=520 s=70",
+         False, chain(2, 100, 640, 70, width=520)),
         *[("lr_sample", f"T={Tb} J={Jb} b=512 r=128 s=16", Tb == 63,
            lrs(Tb, Jb, 512, 128, 16)) for Tb, Jb in LR_BUCKETS],
         ("lr_sample", "ragged T=5 J=2 b=96 r=24 s=20", False,
@@ -760,6 +773,20 @@ def kernel_cases(torch, ranks_a, device="cuda", ranked=None):
          lrs(5, 3, 100, 127, 16)),
         ("lr_sample", "rows past 512 T=4 J=3 b=1000 r=128 s=16", False,
          lrs(4, 3, 1000, 128, 16)),
+        ("lr_sample", "FMA past r=512 T=2 J=3 b=100 ldr=640 width=520 s=16",
+         False, lrs(2, 3, 100, 640, 16, width=520)),
+        # the f64 tensor-core kernels past r = 128, each width at b = 512 and
+        # ragged (b = 500, s = 70 / 20, a width= slice of a wider row
+        # stride, odd at 256 and 512: 8-byte copies)
+        *[case for w, ldr in WIDE_WIDTHS for case in (
+            ("tile_chain", f"{WIDE_HEAD} T=8 b=512 r={w} s=256", False,
+             chain(8, 512, w, 256)),
+            ("tile_chain", f"{WIDE_HEAD} ragged T=3 b=500 ldr={ldr} "
+             f"width={w} s=70", False, chain(3, 500, ldr, 70, width=w)),
+            ("lr_sample", f"{WIDE_HEAD} T=8 J=6 b=512 r={w} s=16", False,
+             lrs(8, 6, 512, w, 16)),
+            ("lr_sample", f"{WIDE_HEAD} ragged T=3 J=5 b=500 ldr={ldr} "
+             f"width={w} s=20", False, lrs(3, 5, 500, ldr, 20, width=w)))],
         ("batched_qr", "op.round T=2016 b=512 r=128", True,
          mgs(2016, 512, 128)),
         ("batched_qr", "right T=2016 b=128 r=128 (+3I)", False,
@@ -933,7 +960,8 @@ def check_kernels(ranks_a, only=None, ranked=None) -> dict:
                                                      ranked=ranked):
         if only is not None and name not in only:
             continue
-        for dtype in (all_dtypes[:2] if name in ("batched_qr", "small_svd")
+        for dtype in (all_dtypes[:1] if label.startswith(WIDE_HEAD) else
+                      all_dtypes[:2] if name in ("batched_qr", "small_svd")
                       else all_dtypes):
             dn = str(dtype).removeprefix("torch.")
             tol = TOL[dn] * TOL_SCALE.get(name, 1.0)
@@ -1455,33 +1483,59 @@ def gemm_shapes_line(shapes: dict) -> str:
         for shape, (c, r, _) in sorted(shapes.items(), reverse=True))
 
 
-def shape_times(name: str, shapes: dict, dtype_name: str = "float64"
-                ) -> float:
-    """Times ``small_svd`` (shapes (T, m, n)), ``batched_qr`` ((T, b, r))
-    or ``batched_gemm`` ((T, m, k, n), from ``gemm_shapes``: at that
-    shape's per-t mean live ranks, rounded) at each shape a path launched it
-    with (random inputs, the square QR panels shifted by 3 I; CUDA events,
-    and a CUDA graph too under DISPATCH_MS) and logs launches x kernel ms
-    against launches x bound ms per shape (``batched_gemm`` also its
-    library call, ``torch.einsum`` of the masked product); returns the
-    summed kernel seconds (the graph's time where taken), the path's time
-    in that kernel as these shapes give it."""
+def shape_times(name: str, shapes: dict, dtype_name: str = "float64",
+                bs: tuple[int, int] = (TILE, 16)) -> dict:
+    """Times ``small_svd`` (shapes (T, m, n)), ``batched_qr`` ((T, b, r)),
+    ``batched_gemm`` ((T, m, k, n), from ``gemm_shapes``: at that shape's
+    per-t mean live ranks, rounded), ``tile_chain`` ((T, b, r, s)) or
+    ``lr_sample`` ((T, J, r) at ``bs`` = (b, s)) at each shape a path
+    launched it with (random inputs, the square QR panels shifted by 3 I;
+    CUDA events, and a CUDA graph too under DISPATCH_MS) and logs launches x
+    kernel ms against launches x bound ms per shape (``batched_gemm`` also
+    its library call, ``torch.einsum`` of the masked product). Returns the
+    summed kernel and bound seconds (the graph's time where taken), the
+    path's time in that kernel as these shapes give it: ``"all"`` over
+    every shape, ``"wide"`` over those whose third dimension (a factor
+    width, k or r) passes R_MAX."""
     import torch
     from repro_torch.kernels import batched_gemm as bg
     from repro_torch.kernels import batched_qr as qr
+    from repro_torch.kernels import lr_sample as lr
     from repro_torch.kernels import small_svd as svd
+    from repro_torch.kernels import tlr_matvec as tc
     dtype = getattr(torch, dtype_name)
     g = torch.Generator(device="cuda").manual_seed(3)
-    total_ms = total_bound = 0.0
+    sums = {"all": [0.0, 0.0], "wide": [0.0, 0.0]}
     for shape, count in sorted(shapes.items(), reverse=True):
         T, m, n = shape[0], shape[1], shape[-1]
-        X = torch.randn((T, m, shape[2]), generator=g, device="cuda",
-                        dtype=torch.float64) / math.sqrt(m)
+        if name == "lr_sample":     # (T, J, r): Ui, Vi (T, J, b, r)
+            m, n = bs
+            X = torch.randn((T, shape[1], m, shape[2]), generator=g,
+                            device="cuda", dtype=torch.float64)
+        else:
+            X = torch.randn((T, m, shape[2]), generator=g, device="cuda",
+                            dtype=torch.float64) / math.sqrt(m)
         if name == "batched_qr" and m == n:
             X += 3.0 * torch.eye(m, device="cuda", dtype=X.dtype)
         X = X.to(dtype)
         library, note = None, ""
-        if name == "batched_gemm":
+        if name in ("tile_chain", "lr_sample"):
+            # X and V = X / sqrt(b) are U and V (the time does not depend
+            # on the values); B is X of tile_chain or W2 of lr_sample
+            r, V = shape[2], X / math.sqrt(m)
+            B = torch.randn((T if name == "tile_chain" else shape[1], m, n),
+                            generator=g, device="cuda",
+                            dtype=torch.float64).to(dtype)
+            if name == "tile_chain":
+                call = functools.partial(tc.tile_chain_cuda, X, V, B)
+                words = 2 * T * m * r + 2 * T * m * n
+                flops = 4.0 * T * m * r * n
+            else:
+                J = shape[1]
+                call = functools.partial(lr.lr_sample_cuda, X, V, B)
+                words = 2 * T * J * m * r + J * m * n + T * m * n
+                flops = 4.0 * T * J * m * r * n
+        elif name == "batched_gemm":
             count, mean, _ = count
             k = shape[2]
             B = (torch.randn((T, k, n), generator=g, device="cuda",
@@ -1516,15 +1570,18 @@ def shape_times(name: str, shapes: dict, dtype_name: str = "float64"
                 note += f", {graph_ms(library):.4f} ms by graph"
         bound = 1e3 * max(words * X.element_size() / PEAK_BYTES,
                           flops / PEAK_FLOPS[dtype_name])
-        total_ms += count * ms
-        total_bound += count * bound
+        for key in ("all", "wide") if shape[2] > R_MAX else ("all",):
+            sums[key][0] += count * ms / 1e3
+            sums[key][1] += count * bound / 1e3
         log(f"  {name} {shape} {dtype_name}: {count} launches x {timing} = "
             f"{count * ms:.1f} ms (bound {bound:.4f} ms, x {count} = "
             f"{count * bound:.1f} ms{note})")
-        del X
-    log(f"  {name} all shapes: {total_ms:.1f} ms (bound "
-        f"{total_bound:.1f} ms)")
-    return total_ms / 1e3
+        del X, call
+    for key, label in (("all", "all shapes"),
+                       ("wide", f"shapes past width {R_MAX}")):
+        log(f"  {name} {label}: {1e3 * sums[key][0]:.1f} ms (bound "
+            f"{1e3 * sums[key][1]:.1f} ms)")
+    return {key: tuple(v) for key, v in sums.items()}
 
 
 def right_phase(n: int, profile: str | None) -> dict:
@@ -1625,7 +1682,7 @@ def right_phase(n: int, profile: str | None) -> dict:
         for name in ("small_svd", "batched_qr", "batched_gemm"):
             log(f"{key}: {name} per shape (f64, timed apart from the "
                 f"path):")
-            sec = shape_times(name, out[f"{key}_shapes"][name])
+            sec = shape_times(name, out[f"{key}_shapes"][name])["all"][0]
             log(f"{key}: {name} {sec:.3f} s of the factorization's "
                 f"{out[f'{key}_seconds']:.3f} s")
     return out
@@ -1690,7 +1747,7 @@ def frac_pcg_phase(profile: str | None = None) -> dict:
         rhs = torch.as_tensor(np.random.default_rng(0).standard_normal(n),
                               device="cuda")
         bnorm = float(rhs.norm())
-        iters = {}
+        iters, fact_s = {}, {}
         for eps in FRAC_EPS:
             torch.cuda.reset_peak_memory_stats()
             op_eps = TLROperator(tlr_add_diag(op.A, eps))
@@ -1710,7 +1767,7 @@ def frac_pcg_phase(profile: str | None = None) -> dict:
             assert hist.breakdown is None and hist[-1] < 1e-6, \
                 f"frac pcg eps={eps:g}: pcg did not converge"
             assert true < 1e-5, f"frac pcg eps={eps:g}: K x far from b"
-            iters[eps] = it
+            iters[eps], fact_s[eps] = it, t_fact
             del fact, op_eps, x
         (x, it_plain, hist), t_plain = sync_time(lambda: pcg(
             op, rhs, tol=1e-6, maxiter=300))
@@ -1728,6 +1785,19 @@ def frac_pcg_phase(profile: str | None = None) -> dict:
         f"{gemm_shapes_line(shapes['batched_gemm'])}")
     for name in MAIN_KERNELS:
         assert launches[name] > 0, f"frac pcg: {name} was not launched"
+    # the sampling kernels' share of the two factorizations, timed apart
+    sampled = {"all": [0.0, 0.0], "wide": [0.0, 0.0]}
+    for name in ("lr_sample", "tile_chain"):
+        log(f"frac pcg: {name} per shape (f64, timed apart from the path):")
+        for key, (sec, bound) in shape_times(
+                name, shapes[name], bs=(FRAC_TILE, 16)).items():
+            sampled[key][0] += sec
+            sampled[key][1] += bound
+    log(f"frac pcg: lr_sample + tile_chain {sampled['all'][0]:.4f} s (bound "
+        f"{sampled['all'][1]:.4f} s) over all shapes, {sampled['wide'][0]:.4f}"
+        f" s (bound {sampled['wide'][1]:.4f} s) past width {R_MAX}, of the "
+        f"factorizations' {sum(fact_s.values()):.3f} s ("
+        + ", ".join(f"eps={e:g} {t:.3f} s" for e, t in fact_s.items()) + ")")
     e1, e2 = FRAC_EPS
     assert iters[e1] < it_plain, \
         f"frac pcg: eps={e1:g} took {iters[e1]} iterations, plain {it_plain}"
@@ -1737,7 +1807,8 @@ def frac_pcg_phase(profile: str | None = None) -> dict:
     served = serve_frac_phase(op, K, FRAC_EPS[0])
     del op, K
     torch.cuda.empty_cache()
-    return {"launches": launches, "shapes": shapes, **served}
+    return {"launches": launches, "shapes": shapes, "factor_s": fact_s,
+            "sampled_s": sampled, **served}
 
 
 # -- phase 9: the Newton-Schulz TLR inverse as preconditioner --------------------

@@ -8,7 +8,9 @@
 // lambdas, so one routine serves row-major, transposed and shared-memory
 // operands alike, and every load is bounds-checked (ragged b, r and s need
 // no padding on the host). The f64 tensor-core instruction and `cp.async`
-// copies are wrapped below for kernels that stage their own operands.
+// copies are wrapped below for kernels that stage their own operands, and
+// the thread block cluster pieces (distributed shared memory, mbarriers)
+// that tile_chain's clusters pass partial sums with.
 //
 // Element types: double, float and __nv_bfloat16. bf16 accumulates in
 // float, as the Pallas kernels accumulate bf16 products in f32.
@@ -171,6 +173,73 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Thread block clusters (sm_90): the block's rank in its cluster, a barrier
+// of all the cluster's threads (release / acquire), and the generic address
+// of `p`'s counterpart in the shared memory of block `rank`.
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+template <typename T>
+__device__ __forceinline__ T* cluster_map(T* p, int rank) {
+  unsigned long long mapped;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(mapped)
+               : "l"(reinterpret_cast<unsigned long long>(p)), "r"(rank));
+  return reinterpret_cast<T*>(mapped);
+}
+
+// mbarriers in shared memory (sm_90): a phase completes when the count given
+// at init has arrived; waiters name the phase by its parity.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// Makes the inits before it visible to the cluster's other blocks.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One arrival, with cluster-scope release, on the counterpart of `bar` in
+// block `rank` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned long long* bar, int rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+               : "memory");
+}
+// Waits, with cluster-scope acquire, until the phase of parity `parity` has
+// completed. Traps after about ten seconds (2^34 cycles) rather than hang
+// on an arrival that never comes.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  long long t0 = -1;
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (t0 < 0)
+      t0 = now;
+    else if (now - t0 > (1LL << 34))
+      __trap();
+  }
 }
 
 // Shared memory above the 48 KB default needs an opt-in per kernel. The

@@ -13,9 +13,9 @@
 // of which has to be read once. Headline (T = 63, J = 30, b = 512,
 // r = 128, s = 16): 1.98 GB, 0.59 ms at 3.35 TB/s.
 //
-// f64, r <= 128 (every call of the main path): `lr_sample_dmma`. What held the
-// first kernel (kept below for f32, bf16 and r > 128) back, and what this
-// one does about it:
+// f64, r <= 512: `lr_sample_dmma<RMAX>`, RMAX = 128 for r <= 128 (every call
+// of the main path), 256 or 512 past it. What held the first kernel (kept
+// below for f32, bf16 and r > 512) back, and what this one does about it:
 //   1. Its grid scaled with T alone, the j loop serial in the block: the
 //      small-T column buckets ((1, 62): 4 blocks) left most of the 132 SMs
 //      idle. Here a block takes one t and a group of jg consecutive j; the
@@ -41,8 +41,8 @@
 //      group: a pair's loads overlap the previous pair's products.
 //        phase 1  Z^T = W2[j][:, chunk]^T V[t,j] (16 x r), contraction over
 //                 b: 16-row slices of V and W2; warp w owns r columns
-//                 [16 w, 16 w + 16). Z^T goes to shared memory (17 KB), never
-//                 to device memory.
+//                 [16 w, 16 w + 16). Z^T goes to shared memory (17 KB at
+//                 r <= 128), never to device memory.
 //        phase 2  Y^T[:, rows] += Z^T U[t,j][rows]^T, contraction over r:
 //                 slices of 64 rows x 32 factor columns of U; warp w owns
 //                 rows 8 w .. 8 w + 7 of every 64-row slice, so each warp
@@ -53,15 +53,26 @@
 //   4. Bytes bound it, so the aim is the bound: 256 threads and 89 KB of
 //      shared memory a block, two blocks an SM, 3 of 4 ring stages (18 KB
 //      each) in flight per block.
+// Past r = 128 (the fractional-diffusion preconditioner's factors,
+// compressed at 1e-10 with r_max = tile: (31, 14, 512, 256, 16) at tile
+// 512, 0.27 ms of bytes) the same design runs at RMAX = 256 and 512: each
+// warp owns RMAX / 8 columns of Z^T in phase 1, phase 2 runs rk / 32 slices
+// of U a row slice, and the phase 1 slice keeps 8 rows, not 16, so that a
+// stage (17 KB at 256, 33 KB at 512) stays near a phase 2 one. Both run one
+// block an SM (RMAX = 256: 101 KB and 168 registers; held to two blocks,
+// 128 registers spilled and the frac path's buckets ran 1-10 % slower);
+// RMAX = 512 takes 197 KB. Each width sizes its j groups by its own
+// occupancy (`slots<RMAX>`).
 // V and W2 slices are XOR-swizzled, U slices and Z^T laid out so that
 // fragment loads hit distinct banks. Copies (16 bytes where strides and
 // pointers allow, else 8) past b, r and s write zeros: ragged shapes need no
 // padding on the host.
 //
-// Every other case (f32, bf16, r > 128) runs `lr_sample_kernel`: the j axis a
-// loop inside the block with the accumulator in registers, W = V^T W2[j]
-// formed per j in shared memory by the shared FMA tile routine (common.cuh),
-// grid (T, ceil(s / 16), ceil(b / 128)); each row block recomputes W.
+// Every other case (f32, bf16, f64 past r = 512) runs `lr_sample_kernel`:
+// the j axis a loop inside the block with the accumulator in registers,
+// W = V^T W2[j] formed per j in shared memory by the shared FMA tile
+// routine (common.cuh), grid (T, ceil(s / 16), ceil(b / 128)); each row
+// block recomputes W.
 //
 // `ldr` is the row stride of U and V: a `width=` slice (r < ldr) of the
 // zero-padded factors costs nothing on the host.
@@ -76,31 +87,41 @@ using namespace repro;
 
 namespace dmma {
 constexpr int SC = 16;              // output columns of a block (one m16 tile)
-constexpr int RMAX = 128;           // factor columns the kernel takes
 constexpr int THREADS = 256;        // 8 warps
 constexpr int BROWS = 512;          // output rows of a block: 8 warps x 64
 constexpr int RB = 64;              // rows of a phase 2 slice, 8 per warp
 constexpr int NRB = BROWS / RB;     // phase 2 row slices: the accumulator's index
 constexpr int KS = 32;              // factor columns of a phase 2 slice
-constexpr int BK1 = 16;             // rows of V and W2 in a phase 1 slice
-constexpr int STAGE1 = BK1 * (RMAX + SC), STAGE2 = RB * KS;
-constexpr int STAGE = STAGE1 > STAGE2 ? STAGE1 : STAGE2;
 constexpr int NST = 4;              // ring stages
-constexpr int LDZ = RMAX + 8;       // padded row stride of Z^T
-constexpr size_t SMEM = (size_t(NST) * STAGE + SC * LDZ) * sizeof(double);
-static_assert(2 * SMEM + 2048 <= 233472, "two blocks fit an SM's shared memory");
+// RMAX = 128 serves r <= 128, RMAX = 256 128 < r <= 256, RMAX = 512
+// 256 < r <= 512.
+template <int RMAX_>
+struct Cfg {
+  static constexpr int RMAX = RMAX_;                  // factor columns the kernel takes
+  static constexpr int BK1 = RMAX <= 128 ? 16 : 8;    // rows of V and W2 in a phase 1 slice
+  static constexpr int WN = RMAX / 8;                 // phase 1: r columns of a warp
+  static constexpr int NF = WN / 8;                   // their n8 tiles
+  static constexpr int STAGE1 = BK1 * (RMAX + SC), STAGE2 = RB * KS;
+  static constexpr int STAGE = STAGE1 > STAGE2 ? STAGE1 : STAGE2;
+  static constexpr int LDZ = RMAX + 8;                // padded row stride of Z^T
+  static constexpr size_t SMEM = (size_t(NST) * STAGE + SC * LDZ) * sizeof(double);
+  static constexpr int MIN_BLOCKS = RMAX <= 128 ? 2 : 1;   // blocks an SM (see above)
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "fits an SM's shared memory");
+};
 }  // namespace dmma
 
 // VEC = 2: 16-byte copies (ldr and s even, pointers 16-byte aligned);
 // VEC = 1: 8-byte ones. Block (x, y, z): 16-column chunk and 512-row block
 // x, group y (pairs j0 = y jg .. min(J, j0 + jg) - 1), row tile t = z. Its
 // sum goes to out[y][t], a (b, s) slice of Y (one group) or of the partials.
-template <int VEC>
-__global__ void __launch_bounds__(dmma::THREADS, 2)
+template <int VEC, int RMAX>
+__global__ void __launch_bounds__(dmma::THREADS, dmma::Cfg<RMAX>::MIN_BLOCKS)
     lr_sample_dmma(const double* __restrict__ Ui, const double* __restrict__ Vi,
                    const double* __restrict__ W2, double* __restrict__ out, int T, int J,
                    int jg, int b, int r, int ldr, int s) {
   using namespace dmma;
+  using C = Cfg<RMAX>;
+  constexpr int BK1 = C::BK1, STAGE = C::STAGE, LDZ = C::LDZ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* ring = reinterpret_cast<double*>(smem_raw);
   double* Zt = ring + NST * STAGE;  // (SC, LDZ): Z^T of the current pair
@@ -207,11 +228,12 @@ __global__ void __launch_bounds__(dmma::THREADS, 2)
   for (int rb = 0; rb < NRB; ++rb)
 #pragma unroll
     for (int v = 0; v < 4; ++v) acc[rb][v] = 0.0;
-  const bool busy1 = 16 * warp < rk;  // the warp's r columns hold data
+  const int wn = warp * C::WN;    // the warp's r columns in phase 1
+  const bool busy1 = wn < rk;     // hold data
   for (int jj = 0; jj < npair; ++jj) {
     // Phase 1: z[nt] = {Zt[g][c], Zt[g][c + 1], Zt[g + 8][c], Zt[g + 8][c + 1]}
-    // at r column c = 16 warp + 8 nt + 2 q.
-    double z[2][4] = {};
+    // at r column c = wn + 8 nt + 2 q.
+    double z[C::NF][4] = {};
     for (int l = 0; l < n1; ++l, advance()) {
       next_slice();
       if (!busy1) continue;
@@ -223,11 +245,11 @@ __global__ void __launch_bounds__(dmma::THREADS, 2)
 #pragma unroll
         for (int v = 0; v < 4; ++v) a[v] = sW[(kk + q + 4 * (v >> 1)) * SC + ((v & 1) ? x8 : x0)];
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          double bf[2];  // B = V: {V[q][c], V[q + 4][c]}, c = 16 warp + 8 nt + g
+        for (int nt = 0; nt < C::NF; ++nt) {
+          double bf[2];  // B = V: {V[q][c], V[q + 4][c]}, c = wn + 8 nt + g
 #pragma unroll
           for (int v = 0; v < 2; ++v)
-            bf[v] = sV[(kk + q + 4 * v) * RMAX + 16 * warp + (nt ? x8 : x0)];
+            bf[v] = sV[(kk + q + 4 * v) * RMAX + wn + 16 * (nt >> 1) + ((nt & 1) ? x8 : x0)];
           mma_m16n8k8_f64(z[nt], a, bf);
         }
       }
@@ -236,8 +258,8 @@ __global__ void __launch_bounds__(dmma::THREADS, 2)
     // these stores before the loads below, and that of the next pair's first
     // phase 1 slice orders the loads before the next stores.
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      double* zc = Zt + g * LDZ + 16 * warp + 8 * nt + 2 * q;
+    for (int nt = 0; nt < C::NF; ++nt) {
+      double* zc = Zt + g * LDZ + wn + 8 * nt + 2 * q;
       *reinterpret_cast<double2*>(zc) = make_double2(z[nt][0], z[nt][1]);
       *reinterpret_cast<double2*>(zc + 8 * LDZ) = make_double2(z[nt][2], z[nt][3]);
     }
@@ -339,32 +361,36 @@ __global__ void __launch_bounds__(Cfg::THREADS)
 // The kernel configuration for factor width r and s output columns, chosen
 // from the shapes alone: the wrapper asks for it (repro_lr_sample_config_*)
 // and passes it back to the launch, which refuses any other.
-enum Config { kFma = 0, kDmma = 1 };
+enum Config { kFma = 0, kDmma = 1, kDmmaWide = 2 };
 constexpr size_t FMA_SMEM_LIMIT = 160 * 1024;  // the FMA kernel's W, r x 16 words
 
 template <typename T>
 static int config(int r, int s) {
   (void)s;  // every s runs in 16-column chunks
-  if (std::is_same_v<T, double> && r <= dmma::RMAX) return kDmma;
+  if (std::is_same_v<T, double> && r <= dmma::Cfg<128>::RMAX) return kDmma;
+  if (std::is_same_v<T, double> && r <= dmma::Cfg<512>::RMAX) return kDmmaWide;
   if (static_cast<size_t>(r) * Tall::BN * sizeof(typename AccOf<T>::type) <= FMA_SMEM_LIMIT)
     return kFma;
   return -1;  // W does not fit
 }
 
-// Block slots of the tensor-core kernel on the current card: SMs and SMs x
-// resident blocks an SM.
+// Block slots of the tensor-core kernel of width RMAX on the current card:
+// SMs and SMs x its resident blocks an SM (two at RMAX = 128, one past it;
+// each width has its own, so that each grid is sized for its own slots).
 struct Slots {
   int sms = 0, total = 0;
 };
+template <int RMAX>
 static Slots slots() {
   static Slots cached;
   if (cached.total == 0) {
+    using C = dmma::Cfg<RMAX>;
     int dev = 0, sms = 0, per = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    allow_dynamic_smem(lr_sample_dmma<2>, dmma::SMEM);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, lr_sample_dmma<2>, dmma::THREADS,
-                                                  dmma::SMEM);
+    allow_dynamic_smem(lr_sample_dmma<2, RMAX>, C::SMEM);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, lr_sample_dmma<2, RMAX>,
+                                                  dmma::THREADS, C::SMEM);
     cached.sms = std::max(sms, 1);
     cached.total = cached.sms * std::max(per, 1);
   }
@@ -380,8 +406,7 @@ static Slots slots() {
 struct Split {
   int jg = 1, groups = 1;
 };
-static Split split(long long tiles, int J) {
-  const Slots sl = slots();
+static Split split(const Slots& sl, long long tiles, int J) {
   const long long want = std::min(tiles * J, static_cast<long long>(sl.sms));
   Split best;
   long long best_cost = LLONG_MAX;
@@ -403,33 +428,43 @@ static long long dmma_tiles(int T_, int b, int s) {
          ((b + dmma::BROWS - 1) / dmma::BROWS);
 }
 
+// The slots of the tensor-core kernel that takes factor width r.
+static Slots slots_for(int r) {
+  if (r <= dmma::Cfg<128>::RMAX) return slots<128>();
+  if (r <= dmma::Cfg<256>::RMAX) return slots<256>();
+  return slots<512>();
+}
+
 // Words of device workspace a call needs: the group partials (G, T, b, s) of
-// the tensor-core kernel when it splits j into more than one group, else 0.
+// the tensor-core kernels when they split j into more than one group, else 0.
 template <typename T>
 static long long workspace(int T_, int J, int b, int r, int s) {
-  if (config<T>(r, s) != kDmma || T_ <= 0 || J <= 0 || b <= 0 || s <= 0) return 0;
-  const Split sp = split(dmma_tiles(T_, b, s), J);
+  const int cfg = config<T>(r, s);
+  if ((cfg != kDmma && cfg != kDmmaWide) || T_ <= 0 || J <= 0 || b <= 0 || s <= 0) return 0;
+  const Split sp = split(slots_for(r), dmma_tiles(T_, b, s), J);
   return sp.groups > 1 ? static_cast<long long>(sp.groups) * T_ * b * s : 0;
 }
 
-template <int VEC>
+template <int VEC, int RMAX>
 static int launch_dmma(const void* Ui, const void* Vi, const void* W2, void* Y, void* work,
                        int T_, int J, int b, int r, int ldr, int s, cudaStream_t stream) {
-  auto kernel = lr_sample_dmma<VEC>;
-  cudaError_t err = allow_dynamic_smem(kernel, dmma::SMEM);
+  using C = dmma::Cfg<RMAX>;
+  auto kernel = lr_sample_dmma<VEC, RMAX>;
+  cudaError_t err = allow_dynamic_smem(kernel, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Split sp = split(dmma_tiles(T_, b, s), J);
+  const Slots sl = slots<RMAX>();
+  const Split sp = split(sl, dmma_tiles(T_, b, s), J);
   if (sp.groups > 1 && work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   double* out = static_cast<double*>(sp.groups > 1 ? work : Y);
   dim3 grid(((s + dmma::SC - 1) / dmma::SC) * ((b + dmma::BROWS - 1) / dmma::BROWS), sp.groups,
             T_);
-  kernel<<<grid, dmma::THREADS, dmma::SMEM, stream>>>(
+  kernel<<<grid, dmma::THREADS, C::SMEM, stream>>>(
       static_cast<const double*>(Ui), static_cast<const double*>(Vi),
       static_cast<const double*>(W2), out, T_, J, sp.jg, b, r, ldr, s);
   err = cudaGetLastError();
   if (err != cudaSuccess || sp.groups == 1) return static_cast<int>(err);
   const long long n = static_cast<long long>(T_) * b * s;
-  const int blocks = static_cast<int>(std::min((n + 255) / 256, 8LL * slots().sms));
+  const int blocks = static_cast<int>(std::min((n + 255) / 256, 8LL * sl.sms));
   lr_sample_reduce<<<blocks, 256, 0, stream>>>(out, static_cast<double*>(Y), n, sp.groups);
   return static_cast<int>(cudaGetLastError());
 }
@@ -459,11 +494,17 @@ static int dispatch(const void* Ui, const void* Vi, const void* W2, void* Y, voi
   if (T_ == 0 || b == 0 || s == 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   if constexpr (std::is_same_v<T, double>) {
-    if (cfg == kDmma) {
-      if (ldr % 2 == 0 && s % 2 == 0 && aligned16(Ui) && aligned16(Vi) && aligned16(W2))
-        return launch_dmma<2>(Ui, Vi, W2, Y, work, T_, k, b, r, ldr, s, st);
-      return launch_dmma<1>(Ui, Vi, W2, Y, work, T_, k, b, r, ldr, s, st);
-    }
+    const bool vec =
+        ldr % 2 == 0 && s % 2 == 0 && aligned16(Ui) && aligned16(Vi) && aligned16(W2);
+    if (cfg == kDmma)
+      return vec ? launch_dmma<2, 128>(Ui, Vi, W2, Y, work, T_, k, b, r, ldr, s, st)
+                 : launch_dmma<1, 128>(Ui, Vi, W2, Y, work, T_, k, b, r, ldr, s, st);
+    if (cfg == kDmmaWide && r <= dmma::Cfg<256>::RMAX)
+      return vec ? launch_dmma<2, 256>(Ui, Vi, W2, Y, work, T_, k, b, r, ldr, s, st)
+                 : launch_dmma<1, 256>(Ui, Vi, W2, Y, work, T_, k, b, r, ldr, s, st);
+    if (cfg == kDmmaWide)
+      return vec ? launch_dmma<2, 512>(Ui, Vi, W2, Y, work, T_, k, b, r, ldr, s, st)
+                 : launch_dmma<1, 512>(Ui, Vi, W2, Y, work, T_, k, b, r, ldr, s, st);
   }
   return launch_fma<T>(Ui, Vi, W2, Y, T_, k, b, r, ldr, s, st);
 }

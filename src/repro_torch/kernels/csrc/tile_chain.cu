@@ -40,13 +40,33 @@
 // memory-bound phase 1 never overlaps another tile's phase 2 on the SM;
 // 1890 tiles over 132 SMs leave the last of 15 waves a third full.
 //
-// Every other case (f32, bf16, s <= 16, r > 128) runs `tile_chain_kernel`:
-// grid (T, ceil(s / SC)), W = V^T X[:, chunk] (r x SC) formed in shared memory
-// with the shared FMA tile routine (common.cuh), then out[:, chunk] = U W.
-// s <= 16 (the W2 hoist) uses the 16-column chunk, s > 16 the 64-column one.
+// f64, s > 16, 128 < r <= 512: `tile_chain_dmma<VEC, H>`, H = 2 (r <= 256)
+// or 4. The factors of the fractional-diffusion preconditioner (compressed
+// at 1e-10 with r_max = tile) reach these widths: at tile 512 its
+// projection chains are (434, 512, 256, 256), 58.2 GFLOP, bound by
+// operations (0.87 ms). Wt of 128 columns a warp no longer fits in
+// registers, so the factor columns are split over a thread block cluster
+// of H blocks per (tile, 128-column chunk): block h runs the r <= 128 kernel
+// above on columns [128 h, 128 h + 128) of U and V, read in place, and the
+// partial output slices (32 rows x 128 columns) pass down a chain through
+// distributed shared memory, block h + 1 to block h, double-buffered and
+// paced by mbarriers; block 0 adds them in a fixed order and stores. Each
+// block reads half (H = 2) of U and V and one chunk of X, as the r <= 128
+// kernel reads all of them. Two designs were slower at the headline (H100,
+// PERF.md): Wt (64 x r) in shared memory with 64-column chunks, 1.86 ms,
+// since U and V are then read four times at s = 256 and loads and
+// products overlap poorly; and that with a copy warp, 2.13 ms (a ninth warp
+// caps registers at 168 and one warp's cp.async cannot keep up).
+//
+// Every other case (f32, bf16, s <= 16, f64 past r = 512) runs
+// `tile_chain_kernel`: grid (T, ceil(s / SC)), W = V^T X[:, chunk] (r x SC)
+// formed in shared memory with the shared FMA tile routine (common.cuh),
+// then out[:, chunk] = U W. s <= 16 (the W2 hoist, at any r) uses the
+// 16-column chunk, s > 16 the 64-column one while W fits.
 //
 // `ldr` is the row stride of U and V: a `width=` slice (r < ldr) of the
 // zero-padded factors costs nothing on the host.
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 
@@ -69,11 +89,21 @@ constexpr int STAGE = STAGE1 > STAGE2 ? STAGE1 : STAGE2;
 constexpr int NST = 4;         // ring stages
 constexpr size_t SMEM = size_t(NST) * STAGE * sizeof(double);
 static_assert(SMEM <= 232448, "fits a block's shared memory");
+// A cluster of H > 1 blocks (128 < r <= 128 H): the partial sums a block
+// passes down the chain, two slices of FB x 4 x THREADS words, then the
+// chain's full and empty mbarriers, two each.
+constexpr int PART = FB * 4 * THREADS;
+constexpr size_t SMEM_SPLIT = SMEM + (2 * PART + 4) * sizeof(double);
+static_assert(SMEM_SPLIT <= 232448, "fits a block's shared memory");
 }  // namespace dmma
 
 // VEC = 2: 16-byte copies (ldr and s even, pointers 16-byte aligned);
-// VEC = 1: 8-byte ones.
-template <int VEC>
+// VEC = 1: 8-byte ones. H = 1: block (t, chunk), all r <= 128 columns.
+// H > 1: a cluster of H blocks per (t, chunk), x = H (t nchunk + chunk) + h;
+// block h takes factor columns [128 h, 128 h + 128) and passes its partial
+// output slices down to block h - 1, which adds its own in front: block 0
+// stores p_0 + (p_1 + (... + p_{H-1})), in the same order every call.
+template <int VEC, int H>
 __global__ void __launch_bounds__(dmma::THREADS, 1)
     tile_chain_dmma(const double* __restrict__ U, const double* __restrict__ V,
                     const double* __restrict__ X, double* __restrict__ out, int b, int r,
@@ -81,10 +111,17 @@ __global__ void __launch_bounds__(dmma::THREADS, 1)
   using namespace dmma;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* ring = reinterpret_cast<double*>(smem_raw);
-  const long long t = blockIdx.x;
-  const int c0 = blockIdx.y * SC;
-  const double* Ut = U + t * b * static_cast<long long>(ldr);
-  const double* Vt = V + t * b * static_cast<long long>(ldr);
+  long long t = blockIdx.x;
+  int c0 = blockIdx.y * SC, h = 0;
+  if constexpr (H > 1) {
+    const int nchunk = (s + SC - 1) / SC;
+    h = static_cast<int>(cluster_ctarank());
+    t = blockIdx.x / H / nchunk;
+    c0 = static_cast<int>(blockIdx.x / H - t * nchunk) * SC;
+    r = max(0, min(RMAX, r - RMAX * h));  // this block's factor columns
+  }
+  const double* Ut = U + t * b * static_cast<long long>(ldr) + RMAX * h;
+  const double* Vt = V + t * b * static_cast<long long>(ldr) + RMAX * h;
   const double* Xt = X + t * b * static_cast<long long>(s);
   double* Ot = out + t * b * static_cast<long long>(s);
 
@@ -153,6 +190,26 @@ __global__ void __launch_bounds__(dmma::THREADS, 1)
     cur = cur + 1 == NST ? 0 : cur + 1;
   };
 
+  // The chain (H > 1): part[sl] holds a partial slice passed up from block
+  // h + 1, full[sl] completes when its 256 threads have written it, empty[sl]
+  // (in block h + 1) when block h's threads have read it. Thread i of the
+  // sender writes word k of its share at k THREADS + i, which thread i of
+  // the receiver reads. The barriers are set up, and the blocks kept alive
+  // until every remote access is done, by barriers of the whole cluster.
+  double* part = ring + NST * STAGE;
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(part + 2 * PART);
+  unsigned long long* empty = full + 2;
+  if constexpr (H > 1) {
+    if (tid == 0) {
+      for (int sl = 0; sl < 2; ++sl) {
+        mbar_init(&full[sl], THREADS);
+        mbar_init(&empty[sl], THREADS);
+      }
+      mbar_init_fence();
+    }
+    cluster_sync();
+  }
+
   // Phase 1: acc[j] is the fragment of Wt rows [wn, wn + 16), columns
   // [8 j, 8 j + 8): {Wt[g][2q], Wt[g][2q + 1], Wt[g + 8][2q], Wt[g + 8][2q + 1]}.
   double acc[FR][4];
@@ -186,7 +243,7 @@ __global__ void __launch_bounds__(dmma::THREADS, 1)
   // out[i + 1][c + 8]} at row i = i0 + 8 jb + 2 q, column c = c0 + wn + g.
   for (int p = n1; p < n; ++p, advance()) {
     wait_for(p);
-    if (!busy) continue;
+    if (H == 1 && !busy) continue;
     const double* sU = ring + cur * STAGE + g * LDU + 2 * q;
     double acc2[FB][4];
 #pragma unroll
@@ -195,13 +252,35 @@ __global__ void __launch_bounds__(dmma::THREADS, 1)
       for (int v = 0; v < 4; ++v) acc2[jb][v] = 0.0;
 #pragma unroll
     for (int kt = 0; kt < FR; ++kt) {
-      if (kt >= nkt) break;
+      if (kt >= nkt || !busy) break;
       const double a[4] = {acc[kt][0], acc[kt][2], acc[kt][1], acc[kt][3]};
 #pragma unroll
       for (int jb = 0; jb < FB; ++jb) {
         const double2 u = *reinterpret_cast<const double2*>(sU + 8 * jb * LDU + 8 * kt);
         const double bf[2] = {u.x, u.y};
         mma_m16n8k8_f64(acc2[jb], a, bf);
+      }
+    }
+    if constexpr (H > 1) {
+      const int j = p - n1, sl = j & 1;
+      double* mine = part + sl * PART + tid;
+      if (h < H - 1) {  // add the partial of blocks h + 1 .. H - 1
+        mbar_wait(&full[sl], (j >> 1) & 1);
+#pragma unroll
+        for (int jb = 0; jb < FB; ++jb)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc2[jb][v] += mine[(4 * jb + v) * THREADS];
+        mbar_arrive_cluster(&empty[sl], h + 1);
+      }
+      if (h > 0) {  // pass the sum on to block h - 1
+        if (j >= 2) mbar_wait(&empty[sl], ((j >> 1) & 1) ^ 1);
+        double* theirs = cluster_map(mine, h - 1);
+#pragma unroll
+        for (int jb = 0; jb < FB; ++jb)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) theirs[(4 * jb + v) * THREADS] = acc2[jb][v];
+        mbar_arrive_cluster(&full[sl], h - 1);
+        continue;
       }
     }
     const int i0 = (p - n1) * BR + 2 * q, col = c0 + wn + g;
@@ -213,6 +292,7 @@ __global__ void __launch_bounds__(dmma::THREADS, 1)
         if (gi < b && gc < s) Ot[static_cast<long long>(gi) * s + gc] = acc2[jb][v];
       }
   }
+  if constexpr (H > 1) cluster_sync();
 }
 
 template <typename T, class Cfg>
@@ -277,7 +357,7 @@ static int launch(const void* U, const void* V, const void* X, void* out, int T_
 template <int VEC>
 static int launch_dmma(const void* U, const void* V, const void* X, void* out, int T_, int b,
                        int r, int ldr, int s, void* stream) {
-  auto kernel = tile_chain_dmma<VEC>;
+  auto kernel = tile_chain_dmma<VEC, 1>;
   cudaError_t err = allow_dynamic_smem(kernel, dmma::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(T_, (s + dmma::SC - 1) / dmma::SC);
@@ -287,18 +367,47 @@ static int launch_dmma(const void* U, const void* V, const void* X, void* out, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// 128 < r <= 128 H: clusters of H blocks, one per (tile, 128-column chunk).
+template <int VEC, int H>
+static int launch_split(const void* U, const void* V, const void* X, void* out, int T_, int b,
+                        int r, int ldr, int s, void* stream) {
+  auto kernel = tile_chain_dmma<VEC, H>;
+  cudaError_t err = allow_dynamic_smem(kernel, dmma::SMEM_SPLIT);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>(T_) * ((s + dmma::SC - 1) / dmma::SC) * H;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(dmma::THREADS);
+  cfg.dynamicSmemBytes = dmma::SMEM_SPLIT;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = H;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const double*>(U),
+                           static_cast<const double*>(V), static_cast<const double*>(X),
+                           static_cast<double*>(out), b, r, ldr, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 static bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // The kernel configuration for factor width r and s output columns, chosen
 // from the shapes alone: the wrapper asks for it (repro_tile_chain_config_*)
 // and passes it back to the launch, which refuses any other.
-enum Config { kNarrow = 0, kWide = 1, kDmma = 2 };
+enum Config { kNarrow = 0, kWide = 1, kDmma = 2, kDmmaWide = 3 };
 constexpr size_t FMA_SMEM_LIMIT = 160 * 1024;  // the FMA kernel's W, r x chunk words
 
 template <typename T>
 static int config(int r, int s) {
   const size_t acc_bytes = sizeof(typename AccOf<T>::type);
   if (std::is_same_v<T, double> && s > 16 && r <= dmma::RMAX) return kDmma;
+  if (std::is_same_v<T, double> && s > 16 && r <= 4 * dmma::RMAX) return kDmmaWide;
   if (s > 16 && static_cast<size_t>(r) * Wide::BN * acc_bytes <= FMA_SMEM_LIMIT) return kWide;
   if (static_cast<size_t>(r) * Narrow::BN * acc_bytes <= FMA_SMEM_LIMIT) return kNarrow;
   return -1;  // W does not fit
@@ -314,6 +423,14 @@ static int dispatch(const void* U, const void* V, const void* X, void* out, int 
       if (ldr % 2 == 0 && s % 2 == 0 && aligned16(U) && aligned16(V) && aligned16(X))
         return launch_dmma<2>(U, V, X, out, T_, b, r, ldr, s, stream);
       return launch_dmma<1>(U, V, X, out, T_, b, r, ldr, s, stream);
+    }
+    if (cfg == kDmmaWide) {
+      const bool vec = ldr % 2 == 0 && s % 2 == 0 && aligned16(U) && aligned16(V) && aligned16(X);
+      if (r <= 2 * dmma::RMAX)
+        return vec ? launch_split<2, 2>(U, V, X, out, T_, b, r, ldr, s, stream)
+                   : launch_split<1, 2>(U, V, X, out, T_, b, r, ldr, s, stream);
+      return vec ? launch_split<2, 4>(U, V, X, out, T_, b, r, ldr, s, stream)
+                 : launch_split<1, 4>(U, V, X, out, T_, b, r, ldr, s, stream);
     }
   }
   if (cfg == kWide) return launch<T, Wide>(U, V, X, out, T_, b, r, ldr, s, stream);

@@ -3,15 +3,16 @@
 
 Port of the Pallas TPU kernel ``lr_sample_pallas`` (``_lr_sample_kernel``,
 src/repro/kernels/lr_sample.py:36-93). The CUDA kernel is
-``csrc/lr_sample.cu``. In f64 with r <= 128 (every call of the main path)
-it runs on the FP64 tensor cores: a block takes one row tile t and a group
-of j, forms each ``V[t, j]^T W2[j]`` once on chip and keeps the group's sum
-in registers; the source splits j into groups so that the grid fills the
-card, and a second pass adds the groups' partials in a fixed order. Other
-dtypes and widths run plain FMA loops with the j axis a loop inside each
-block. The source chooses by shape, and :func:`_config` asks it before the
-launch; what bounds the kernel on the H100 and what the design does about
-it is noted in the source.
+``csrc/lr_sample.cu``. In f64 with r <= 512 it runs on the FP64 tensor
+cores (r <= 128 for every call of the main path; up to 512 for the
+fractional-diffusion preconditioner's factors): a block takes one row tile
+t and a group of j, forms each ``V[t, j]^T W2[j]`` once on chip and keeps
+the group's sum in registers; the source splits j into groups so that the
+grid fills the card, and a second pass adds the groups' partials in a
+fixed order. f32, bf16 and f64 past r = 512 run plain FMA loops with the j
+axis a loop inside each block. The source chooses by shape, and
+:func:`_config` asks it before the launch; what bounds the kernel on the
+H100 and what the design does about it is noted in the source.
 
 :func:`lr_sample` launches the kernel for CUDA tensors and runs
 :func:`lr_sample_plain` for CPU tensors; there is no fallback between the
@@ -31,13 +32,14 @@ LAUNCHES = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 SHAPES: dict[tuple[int, int, int], int] = {}
 
 # Kernel configurations, as ``config`` in csrc/lr_sample.cu numbers them.
-FMA, DMMA = 0, 1
+FMA, DMMA, DMMA_WIDE = 0, 1, 2
 
 
 def _config(dtype: torch.dtype, r: int, s: int) -> int:
     """The kernel configuration that csrc/lr_sample.cu chooses for factor
-    width ``r`` and ``s`` columns: the f64 tensor-core kernel for r <= 128,
-    else the FMA kernel while its shared-memory intermediate fits."""
+    width ``r`` and ``s`` columns: the f64 tensor-core kernels for r <= 128
+    (DMMA) and 128 < r <= 512 (DMMA_WIDE), else the FMA kernel while its
+    shared-memory intermediate fits."""
     cfg = build.query("lr_sample", "config", dtype, r, s)
     if cfg < 0:
         raise ValueError(f"lr_sample: width {r} too large for the "

@@ -4,12 +4,15 @@ Port of the Pallas TPU kernel ``tile_chain_pallas`` (``_tile_chain_kernel``,
 src/repro/kernels/tlr_matvec.py:23-61). The CUDA kernel is
 ``csrc/tile_chain.cu``: each block forms ``W = V[t]^T X[t][:, chunk]`` on
 chip and writes ``U[t] @ W``, so the intermediate never touches device
-memory. In f64 with s > 16 and r <= 128 (the projection chains of
-``sample_t``) it runs on the FP64 tensor cores, one block per tile and
-128-column chunk, with W in registers; every other shape runs plain FMA
-loops with W in shared memory. The source chooses by shape, and
-:func:`_config` asks it before the launch. What bounds it on the H100 and
-what the design does about it is noted in the source.
+memory. In f64 with s > 16 it runs on the FP64 tensor cores, one block per
+tile and 128-column chunk with W in registers: for r <= 128 (the
+projection chains of ``sample_t``) alone, for 128 < r <= 512 (the
+fractional-diffusion preconditioner's factors) as a cluster of two or four
+blocks that split the factor columns and add their partial outputs in a
+fixed order. f32, bf16, s <= 16 (the W2 hoist) and f64 past r = 512 run
+plain FMA loops with W in shared memory. The source chooses by
+shape, and :func:`_config` asks it before the launch. What bounds it on the
+H100 and what the design does about it is noted in the source.
 
 :func:`tile_chain` launches the kernel for CUDA tensors and runs
 :func:`tile_chain_plain` for CPU tensors; there is no fallback between the
@@ -28,14 +31,15 @@ LAUNCHES = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 SHAPES: dict[tuple[int, int, int, int], int] = {}
 
 # Kernel configurations, as ``config`` in csrc/tile_chain.cu numbers them.
-NARROW, WIDE, DMMA = 0, 1, 2
+NARROW, WIDE, DMMA, DMMA_WIDE = 0, 1, 2, 3
 
 
 def _config(dtype: torch.dtype, r: int, s: int) -> int:
     """The kernel configuration that csrc/tile_chain.cu chooses for factor
-    width ``r`` and ``s`` columns: the f64 tensor-core kernel where it
-    applies, else the FMA kernel with 64-column chunks (s > 16) or
-    16-column chunks (s <= 16, or a wide r)."""
+    width ``r`` and ``s`` columns: the f64 tensor-core kernels where they
+    apply (s > 16; DMMA for r <= 128, DMMA_WIDE for 128 < r <= 512), else
+    the FMA kernel with 64-column chunks (s > 16) or 16-column chunks (s <=
+    16, or a wide r)."""
     cfg = build.query("tile_chain", "config", dtype, r, s)
     if cfg < 0:
         raise ValueError(f"tile_chain: width {r} too large for the "

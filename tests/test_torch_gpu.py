@@ -10,8 +10,9 @@ bf16 accumulating in f32), relative to the largest |plain output|; each
 check must also reject a planted fault (one rank or one j term dropped).
 The f64 paths of ``tile_chain`` with s > 16, of ``lr_sample`` and of
 ``batched_gemm`` have their own ragged cases: the tensor-core kernels (r <=
-128) and the FMA kernels past them; ``batched_gemm`` also with garbage past
-each rank, bitwise repeats and its configuration by shape.
+128, and for the two sampling kernels 128 < r <= 512) and the FMA kernels
+past them; bitwise repeats and each kernel's configuration by shape;
+``batched_gemm`` also with garbage past each rank.
 The rounding kernels run in f64 and f32: ``batched_qr`` is held to the
 same gate on Q and R, ``small_svd`` to ten times it on the sorted singular
 values and on the reconstruction ``U diag(s) V^T`` (its U and V columns of
@@ -89,14 +90,19 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
     (128, None, 17, ttc.DMMA), (128, None, 128, ttc.DMMA),
     (128, None, 200, ttc.DMMA), (128, 37, 17, ttc.DMMA),
     (128, 37, 128, ttc.DMMA), (128, 37, 200, ttc.DMMA),
-    (160, None, 70, ttc.WIDE), (160, 129, 70, ttc.WIDE),
+    (160, None, 70, ttc.DMMA_WIDE), (160, 129, 70, ttc.DMMA_WIDE),
+    (256, None, 70, ttc.DMMA_WIDE), (259, 256, 200, ttc.DMMA_WIDE),
+    (512, 384, 70, ttc.DMMA_WIDE), (512, None, 33, ttc.DMMA_WIDE),
+    (515, 512, 17, ttc.DMMA_WIDE), (640, 513, 70, ttc.NARROW),
 ])
 def test_cuda_tile_chain_f64_tensor_cores(cuda_device, ldr, width, s, cfg):
     """On the card: the f64 paths of tile_chain with s > 16 against their
-    plain version, at b = 100 (not a multiple of the 16-row slices). The
+    plain version, at b = 100 (not a multiple of the slices). The r <= 128
     tensor-core kernel takes all 128 factor columns or 37 of them by
-    ``width=``, at s = 17, 128 and 200 (two 128-column chunks); r = 160 and
-    129 go past it, to the FMA kernel with 64-column chunks."""
+    ``width=``, at s = 17, 128 and 200 (two 128-column chunks); its
+    clusters of two or four blocks (128 < r <= 512) widths 129, 160, 256,
+    384 and 512 (odd row strides 259 and 515: 8-byte copies) at s from 17 to
+    200; r = 513 goes past them, to the FMA kernel with 16-column chunks."""
     T, b = 3, 100
     r = ldr if width is None else width
     assert ttc._config(torch.float64, r, s) == cfg
@@ -122,15 +128,20 @@ def test_cuda_tile_chain_f64_tensor_cores(cuda_device, ldr, width, s, cfg):
     (torch.float64, 128, 128, ttc.DMMA),    # sample_t's projection chains
     (torch.float64, 37, 17, ttc.DMMA),
     (torch.float64, 128, 16, ttc.NARROW),   # the W2 hoist
-    (torch.float64, 129, 128, ttc.WIDE),    # r past the tensor-core kernel's W
-    (torch.float64, 321, 128, ttc.NARROW),
+    (torch.float64, 256, 16, ttc.NARROW),   # the W2 hoist past r = 128
+    (torch.float64, 129, 128, ttc.DMMA_WIDE),   # W in shared memory
+    (torch.float64, 321, 128, ttc.DMMA_WIDE),
+    (torch.float64, 512, 17, ttc.DMMA_WIDE),
+    (torch.float64, 513, 128, ttc.NARROW),  # past the tensor-core kernels
     (torch.float32, 128, 128, ttc.WIDE),
+    (torch.float32, 256, 128, ttc.WIDE),
     (torch.bfloat16, 128, 16, ttc.NARROW),
 ])
 def test_cuda_tile_chain_config_by_shape(cuda_device, dtype, r, s, cfg):
     """tile_chain's kernel configuration comes from the shapes alone, as
     csrc/tile_chain.cu decides before any launch: the f64 tensor-core
-    kernel for s > 16 and r <= 128, the FMA kernel otherwise."""
+    kernels for s > 16 and r <= 128 or 128 < r <= 512, the FMA kernel
+    otherwise."""
     assert ttc._config(dtype, r, s) == cfg
 
 
@@ -174,13 +185,13 @@ def test_cuda_tile_chain_f64_eight_byte_copies(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("r", [129, 256, 384, 512])
 def test_cuda_lr_sample_fma_widths(cuda_device, r, dtype):
-    """On the card: lr_sample's FMA kernel at factor widths past the f64
-    tensor-core kernel's 128 (a left Cholesky whose L ranks pass 128, as
-    the fractional-diffusion path's at eps 1e-4), whose shared memory,
-    static and dynamic together, passes the 48 KB default in f64 from r =
-    192 on; the gate rejects the last j term dropped."""
+    """On the card: lr_sample at factor widths past 128 (a left Cholesky
+    whose L ranks pass 128, as the fractional-diffusion path's at eps 1e-4):
+    f64 on the tensor-core kernel of 128 < r <= 512 (RMAX 256 and 512), f32
+    on the FMA kernel; the gate rejects the last j term dropped."""
     T, J, b, s = 3, 4, 512, 16
-    assert tlr._config(dtype, r, s) == tlr.FMA
+    assert tlr._config(dtype, r, s) == (tlr.DMMA_WIDE if dtype == torch.float64
+                                        else tlr.FMA)
     g = torch.Generator(device=cuda_device).manual_seed(5)
 
     def rnd(*shape):
@@ -234,14 +245,17 @@ def test_cuda_lr_sample_f64_tensor_cores(cuda_device, T, J, s):
 @pytest.mark.parametrize("dtype,r,cfg", [
     (torch.float64, 128, tlr.DMMA),     # the main path
     (torch.float64, 37, tlr.DMMA),
-    (torch.float64, 129, tlr.FMA),      # r past the tensor-core kernel
+    (torch.float64, 129, tlr.DMMA_WIDE),    # r past 128
+    (torch.float64, 512, tlr.DMMA_WIDE),
+    (torch.float64, 513, tlr.FMA),      # r past the tensor-core kernels
     (torch.float32, 128, tlr.FMA),
+    (torch.float32, 256, tlr.FMA),
     (torch.bfloat16, 128, tlr.FMA),
 ])
 def test_cuda_lr_sample_config_by_shape(cuda_device, dtype, r, cfg):
     """lr_sample's kernel configuration comes from the shapes alone, as
     csrc/lr_sample.cu decides before any launch: the f64 tensor-core
-    kernel for r <= 128, the FMA kernel otherwise."""
+    kernels for r <= 128 and 128 < r <= 512, the FMA kernel otherwise."""
     assert tlr._config(dtype, r, 16) == cfg
 
 
@@ -305,6 +319,91 @@ def test_cuda_lr_sample_f64_eight_byte_copies(cuda_device, ldr, w2_offset):
     atol = 1e-12 * float(want.abs().max())
     assert float((got - want).abs().max()) <= atol
     assert float((fault - want).abs().max()) > atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,J,b,ldr,width,s", [
+    (1, 1, 100, 160, 129, 16), (3, 5, 100, 256, None, 20),
+    (63, 2, 500, 259, 256, 17), (2, 30, 300, 512, 384, 33),
+    (4, 3, 1000, 515, 512, 16), (8, 26, 512, 512, None, 16),
+])
+def test_cuda_lr_sample_f64_tensor_cores_wide(cuda_device, T, J, b, ldr,
+                                              width, s):
+    """On the card: the f64 tensor-core kernel of lr_sample past r = 128
+    against its plain version at widths 129, 256, 384 and 512: ragged b
+    (100, 300, 500; 1000, two 512-row blocks), s = 16, 17, 20 and 33 (one to
+    three 16-column chunks), ``width=`` slices of wider rows (odd strides 259
+    and 515: 8-byte copies), J from 1 to 30 (one group of j, or partials
+    added over several); the gate rejects the last j term dropped."""
+    r = ldr if width is None else width
+    assert tlr._config(torch.float64, r, s) == tlr.DMMA_WIDE
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device,
+                           dtype=torch.float64)
+
+    Ui, Vi, W2 = rnd(T, J, b, ldr), rnd(T, J, b, ldr), rnd(J, b, s)
+    ops.reset_launch_counts()
+    got = ops.lr_sample(Ui, Vi, W2, width=width)
+    want = tlr.lr_sample_plain(Ui, Vi, W2, width=width)
+    fault = tlr.lr_sample_plain(Ui[:, :-1].contiguous(),
+                                Vi[:, :-1].contiguous(),
+                                W2[:-1].contiguous(), width=width)
+    atol = 1e-12 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= atol
+    assert float((fault - want).abs().max()) > atol
+    assert tlr.SHAPES == {(T, J, r): 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [256, 512])
+def test_cuda_lr_sample_wide_bitwise_deterministic(cuda_device, r):
+    """Two calls of the tensor-core kernel past r = 128 give bitwise-equal
+    Y, at a column bucket of the fractional-diffusion path whose j is split
+    into groups whose partials are added in a second pass (T = 8, J = 26,
+    b = 512, s = 16)."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    T, J, b, s = 8, 26, 512, 16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device,
+                           dtype=torch.float64)
+
+    Ui, Vi, W2 = rnd(T, J, b, r), rnd(T, J, b, r), rnd(J, b, s)
+    assert tlr._config(torch.float64, r, s) == tlr.DMMA_WIDE
+    assert build.query("lr_sample", "workspace", torch.float64,
+                       T, J, b, r, s) > 0
+    first = ops.lr_sample(Ui, Vi, W2)
+    for _ in range(3):
+        assert torch.equal(ops.lr_sample(Ui, Vi, W2), first)
+    want = tlr.lr_sample_plain(Ui, Vi, W2)
+    assert float((first - want).abs().max()) <= \
+        1e-12 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [256, 512])
+def test_cuda_tile_chain_wide_bitwise_deterministic(cuda_device, r):
+    """Two calls of tile_chain's tensor-core kernel past r = 128 give
+    bitwise-equal output (its clusters add their partial outputs in a fixed
+    order), at the fractional-diffusion path's projection chains (T = 112,
+    b = 512, s = 256)."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    T, b, s = 112, 512, 256
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device,
+                           dtype=torch.float64)
+
+    U, V, X = rnd(T, b, r), rnd(T, b, r), rnd(T, b, s)
+    assert ttc._config(torch.float64, r, s) == ttc.DMMA_WIDE
+    first = ops.tile_chain(U, V, X)
+    for _ in range(3):
+        assert torch.equal(ops.tile_chain(U, V, X), first)
+    want = ttc.tile_chain_plain(U, V, X)
+    assert float((first - want).abs().max()) <= \
+        1e-12 * float(want.abs().max())
 
 
 # batched_gemm's shapes on the ported paths, (T, m, k, n): the left

@@ -171,11 +171,13 @@ def test_tile_chain_width():
 @pytest.mark.parametrize("ldr,width,s", [
     (128, None, 17), (128, None, 128), (128, None, 200), (128, 37, 17),
     (128, 37, 128), (128, 37, 200), (160, None, 70), (160, 129, 70),
+    (256, None, 70), (512, 300, 40),
 ])
 def test_tile_chain_ragged_f64_matches_jax(ldr, width, s):
     """The f64 shapes that tests/test_torch_gpu.py holds the card's kernels
-    to (b = 100, all factor columns or a ``width=`` slice, s from 17 to 200),
-    against the Pallas kernel in interpret mode."""
+    to (b = 100, all factor columns or a ``width=`` slice, s from 17 to 200;
+    widths past 128 as the tensor-core kernel of 128 < r <= 512 takes
+    them), against the Pallas kernel in interpret mode."""
     rng = np.random.default_rng(7)
     U, V, X = (rng.standard_normal(shape) for shape in
                ((2, 100, ldr), (2, 100, ldr), (2, 100, s)))
@@ -186,20 +188,27 @@ def test_tile_chain_ragged_f64_matches_jax(ldr, width, s):
     _close(got, want, 1e-12, 1e-12 * np.sqrt(100))
 
 
-@pytest.mark.parametrize("s", [16, 17, 20])
-@pytest.mark.parametrize("T,J", [(1, 1), (3, 5)])
-def test_lr_sample_ragged_f64_matches_jax(T, J, s):
+_LR_RAGGED = [(T, J, s, 128, 37) for s in (16, 17, 20)
+              for T, J in ((1, 1), (3, 5))] + [(1, 1, 16, 256, 200),
+                                              (3, 5, 20, 512, 384)]
+
+
+@pytest.mark.parametrize("T,J,s,ldr,width", _LR_RAGGED, ids=[
+    f"{T}-{J}-{s}" + ("" if ldr == 128 else f"-ldr{ldr}-width{width}")
+    for T, J, s, ldr, width in _LR_RAGGED])
+def test_lr_sample_ragged_f64_matches_jax(T, J, s, ldr, width):
     """The f64 shapes that tests/test_torch_gpu.py holds the card's
-    tensor-core kernel to (b = 100, 37 of 128 factor columns by ``width=``,
-    one or two 16-column chunks), against the Pallas kernel in interpret
-    mode."""
+    tensor-core kernels to (b = 100, 37 of 128 factor columns by
+    ``width=``, one or two 16-column chunks; and ``width=`` slices past 128
+    of rows of 256 and 512, as the kernel of 128 < r <= 512 takes them),
+    against the Pallas kernel in interpret mode."""
     rng = np.random.default_rng(8)
     Ui, Vi, W2 = (rng.standard_normal(shape) for shape in
-                  ((T, J, 100, 128), (T, J, 100, 128), (J, 100, s)))
+                  ((T, J, 100, ldr), (T, J, 100, ldr), (J, 100, s)))
     got = ops.lr_sample(*(torch.from_numpy(a) for a in (Ui, Vi, W2)),
-                        width=37)
+                        width=width)
     want = lr_sample_pallas(jnp.asarray(Ui), jnp.asarray(Vi), jnp.asarray(W2),
-                            interpret=True, width=37)
+                            interpret=True, width=width)
     _close(got, want, 1e-12, 1e-12 * np.sqrt(100 * J))
 
 

@@ -2,7 +2,8 @@
 """Time compiled variants of one kernel source (``csrc/<kernel>.cu``) on one
 card.
 
-The first argument names the kernel (``batched_qr`` or ``batched_gemm``);
+The first argument names the kernel (``batched_qr``, ``batched_gemm``,
+``tile_chain`` or ``lr_sample``);
 each further argument names a variant and its extra ``nvcc`` flags,
 ``name=flags`` (``base`` alone builds the source as it is), and may name
 another source file of the same kernel, ``name@path=flags`` (for example
@@ -18,7 +19,12 @@ op.round's, in f64 and f32, on random panels with columns of norm ~1;
 flush densify, truncation and trailing SYRK (ranks drawn like L's: mean
 ~8, max 39), a panel densify, one tile, and op.round's truncation, on
 random operands, each timed by CUDA events over 10 back-to-back calls and
-as calls replayed from a CUDA graph (``chip_smoke.graph_ms``). A
+as calls replayed from a CUDA graph (``chip_smoke.graph_ms``);
+``tile_chain`` in f64 at the fractional-diffusion path's projection chains
+past r = 128 and the main path's ``sample_t``, ``lr_sample`` in f64 at the
+fractional-diffusion path's column buckets past r = 128, one at r = 512
+and the main path's headline (random operands, CUDA events over 5
+calls). A
 ``batched_gemm`` source without the ``config`` query (the FMA-only
 kernel of earlier commits)
 is launched through its own entry, which takes no configuration. Inputs
@@ -48,6 +54,14 @@ GEMM_SHAPES = ((63, 512, 128, 16, "A"), (63, 512, 128, 128, "A"),
                (2016, 128, 384, 128, "full"), (2016, 128, 128, 128, "full"),
                (1953, 128, 128, 128, "L"), (63, 128, 384, 128, "full"),
                (1, 128, 128, 128, "full"), (2016, 512, 128, 128, "full"))
+# (T, b, r, s): frac3d-16k-pcg's widest chains, a width-512 one, sample_t
+CHAIN_SHAPES = ((434, 512, 256, 256), (352, 512, 256, 256),
+                (434, 512, 256, 128), (112, 512, 512, 256),
+                (1890, 512, 128, 128))
+# (T, J, b, r, s): frac3d-16k-pcg's buckets past 128, r = 512, the headline
+LR_SHAPES = ((31, 14, 512, 256, 16), (16, 22, 512, 256, 16),
+             (8, 26, 512, 256, 16), (1, 30, 512, 256, 16),
+             (8, 6, 512, 512, 16), (63, 30, 512, 128, 16))
 
 
 def _event_ms(call, reps: int = 5) -> float:
@@ -132,6 +146,66 @@ def gemm_times(cdll, name: str, stream: int) -> list[str]:
     return times
 
 
+def chain_times(cdll, name: str, stream: int) -> list[str]:
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(0)
+    fn = cdll.repro_tile_chain_f64
+    fn.restype = ctypes.c_int
+    config = cdll.repro_tile_chain_config_f64
+    config.argtypes, config.restype = [ctypes.c_int] * 2, ctypes.c_int
+    from repro_torch.kernels import build
+    fn.argtypes = build._SIGNATURES["tile_chain"]
+    times = []
+    for T, b, r, s in CHAIN_SHAPES:
+        U, V = (torch.randn((T, b, r), generator=g, device="cuda",
+                            dtype=torch.float64) for _ in range(2))
+        X = torch.randn((T, b, s), generator=g, device="cuda",
+                        dtype=torch.float64)
+        out = torch.empty_like(X)
+        cfg = config(r, s)
+
+        def call():
+            return fn(U.data_ptr(), V.data_ptr(), X.data_ptr(),
+                      out.data_ptr(), T, b, r, r, s, cfg, stream)
+        build.check(f"tile_chain variant {name}", call())
+        times.append(f"{(T, b, r, s)} {_event_ms(call):.4f} ms")
+        del U, V, X, out
+    return times
+
+
+def lr_times(cdll, name: str, stream: int) -> list[str]:
+    import torch
+    from repro_torch.kernels import build
+    g = torch.Generator(device="cuda").manual_seed(0)
+    fn = cdll.repro_lr_sample_f64
+    fn.restype = ctypes.c_int
+    fn.argtypes = build._SIGNATURES["lr_sample"]
+    config = cdll.repro_lr_sample_config_f64
+    config.argtypes, config.restype = [ctypes.c_int] * 2, ctypes.c_int
+    workspace = cdll.repro_lr_sample_workspace_f64
+    workspace.argtypes = [ctypes.c_int] * 5
+    workspace.restype = ctypes.c_longlong
+    times = []
+    for T, J, b, r, s in LR_SHAPES:
+        Ui, Vi = (torch.randn((T, J, b, r), generator=g, device="cuda",
+                              dtype=torch.float64) for _ in range(2))
+        W2 = torch.randn((J, b, s), generator=g, device="cuda",
+                         dtype=torch.float64)
+        Y = W2.new_empty((T, b, s))
+        words = workspace(T, J, b, r, s)
+        work = W2.new_empty(max(words, 1))
+        cfg = config(r, s)
+
+        def call():
+            return fn(Ui.data_ptr(), Vi.data_ptr(), W2.data_ptr(),
+                      Y.data_ptr(), work.data_ptr() if words else None, T,
+                      J, b, r, r, s, cfg, stream)
+        build.check(f"lr_sample variant {name}", call())
+        times.append(f"{(T, J, b, r, s)} {_event_ms(call):.4f} ms")
+        del Ui, Vi, W2, Y, work
+    return times
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
@@ -141,10 +215,11 @@ def main() -> int:
         print("kernel_variants: no CUDA card", file=sys.stderr)
         return 2
     kernel = sys.argv[1] if len(sys.argv) > 1 else ""
-    timer = {"batched_qr": qr_times, "batched_gemm": gemm_times}.get(kernel)
+    timer = {"batched_qr": qr_times, "batched_gemm": gemm_times,
+             "tile_chain": chain_times, "lr_sample": lr_times}.get(kernel)
     if timer is None:
-        print("kernel_variants: name batched_qr or batched_gemm first",
-              file=sys.stderr)
+        print("kernel_variants: name batched_qr, batched_gemm, tile_chain or "
+              "lr_sample first", file=sys.stderr)
         return 2
     variants = dict(a.split("=", 1) if "=" in a else (a, "")
                     for a in sys.argv[2:] or ["base"])
