@@ -1,0 +1,7 @@
+"""Share of a profiled solution's time with no operation on the device."""
+
+from tlrbench import readers
+
+
+def read(record):
+    return readers.device_idle(record)
